@@ -1,0 +1,247 @@
+"""RAFT-class recurrent optical flow network (port of particlesfm_tpu/models/raft.py).
+
+Module names match the flax parameter tree one for one, so
+`io.checkpoint.raft_state_dict_from_jax` carries the repo's checkpoints over
+by path. Tensors are NCHW inside; channel orders follow the JAX model:
+- correlation features are level, then dy, then dx (raft.py:106-111,207);
+- concatenations keep the flax order (raft.py:226,228,238,243,282);
+- the upsampling mask is [8, 8, 9] per pixel, channel = a*72 + b*9 + n
+  (raft.py:295), not torch RAFT's n*64 + a*8 + b.
+Every conv larger than 1x1 has the flax model's explicit symmetric padding;
+the 1x1 stride-2 `downsample` (flax SAME) pads nothing.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.corr_lookup import lookup_corr
+
+
+def _instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample, per-channel normalization over H, W: biased variance,
+    eps 1e-5, no affine (raft.py:25)."""
+    mean = x.mean(dim=(-2, -1), keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=(-2, -1), keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+def _norm(kind: str, planes: int) -> nn.Module:
+    if kind == "batch":
+        return nn.BatchNorm2d(planes, eps=1e-5)
+    if kind == "instance":
+        return _InstanceNorm()
+    return nn.Identity()
+
+
+class _InstanceNorm(nn.Module):
+    def forward(self, x):
+        return _instance_norm(x)
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1, norm: str = "instance"):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1)
+        self.norm1 = _norm(norm, planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.norm2 = _norm(norm, planes)
+        self.downsample = None
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Conv2d(in_planes, planes, 1, stride=stride)
+            self.norm3 = _norm(norm, planes)
+
+    def forward(self, x):
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.norm3(self.downsample(x))
+        return F.relu(x + y)
+
+
+class BasicEncoder(nn.Module):
+    def __init__(self, output_dim: int = 256, norm: str = "instance", base: int = 64):
+        super().__init__()
+        b = base
+        self.conv1 = nn.Conv2d(3, b, 7, stride=2, padding=3)
+        self.norm1 = _norm(norm, b)
+        in_planes = b
+        for i, (planes, stride) in enumerate(((b, 1), (3 * b // 2, 2), (2 * b, 2))):
+            setattr(self, f"layer{i + 1}_0", ResidualBlock(in_planes, planes, stride, norm))
+            setattr(self, f"layer{i + 1}_1", ResidualBlock(planes, planes, 1, norm))
+            in_planes = planes
+        self.conv2 = nn.Conv2d(in_planes, output_dim, 1)
+
+    def forward(self, x):
+        x = F.relu(self.norm1(self.conv1(x)))
+        for i in range(3):
+            x = getattr(self, f"layer{i + 1}_0")(x)
+            x = getattr(self, f"layer{i + 1}_1")(x)
+        return self.conv2(x)
+
+
+def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4):
+    """All-pairs correlation + 2x2-average-pooled pyramid.
+
+    fmap1, fmap2: [B, D, H, W] (1/8 resolution). Returns a list of contiguous
+    [B, H*W, Hl, Wl] per-pixel correlation maps."""
+    B, D, H, W = fmap1.shape
+    f1 = fmap1.reshape(B, D, H * W).transpose(1, 2)
+    f2 = fmap2.reshape(B, D, H * W)
+    corr = torch.bmm(f1, f2) / torch.sqrt(torch.tensor(float(D), dtype=fmap1.dtype))
+    corr = corr.view(B * H * W, 1, H, W)
+    pyramid = [corr.view(B, H * W, H, W)]
+    for _ in range(num_levels - 1):
+        corr = F.avg_pool2d(corr, 2, stride=2)
+        pyramid.append(corr.view(B, H * W, corr.shape[-2], corr.shape[-1]))
+    return pyramid
+
+
+class BasicMotionEncoder(nn.Module):
+    def __init__(self, corr_channels: int, dims=(256, 192, 128, 64, 128)):
+        super().__init__()
+        d = dims
+        self.convc1 = nn.Conv2d(corr_channels, d[0], 1)
+        self.convc2 = nn.Conv2d(d[0], d[1], 3, padding=1)
+        self.convf1 = nn.Conv2d(2, d[2], 7, padding=3)
+        self.convf2 = nn.Conv2d(d[2], d[3], 3, padding=1)
+        self.conv = nn.Conv2d(d[1] + d[3], d[4] - 2, 3, padding=1)
+
+    def forward(self, flow, corr):
+        c = F.relu(self.convc1(corr))
+        c = F.relu(self.convc2(c))
+        f = F.relu(self.convf1(flow))
+        f = F.relu(self.convf2(f))
+        out = F.relu(self.conv(torch.cat([c, f], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
+class SepConvGRU(nn.Module):
+    def __init__(self, hidden: int, input_dim: int):
+        super().__init__()
+        c = hidden + input_dim
+        for tag, ksize, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in ("z", "r", "q"):
+                setattr(self, f"conv{gate}{tag}", nn.Conv2d(c, hidden, ksize, padding=pad))
+
+    def forward(self, h, x):
+        for tag in ("1", "2"):
+            hx = torch.cat([h, x], dim=1)
+            z = torch.sigmoid(getattr(self, f"convz{tag}")(hx))
+            r = torch.sigmoid(getattr(self, f"convr{tag}")(hx))
+            q = torch.tanh(getattr(self, f"convq{tag}")(torch.cat([r * h, x], dim=1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
+class FlowHead(nn.Module):
+    def __init__(self, input_dim: int, hidden: int = 256):
+        super().__init__()
+        self.conv1 = nn.Conv2d(input_dim, hidden, 3, padding=1)
+        self.conv2 = nn.Conv2d(hidden, 2, 3, padding=1)
+
+    def forward(self, h):
+        return self.conv2(F.relu(self.conv1(h)))
+
+
+class UpdateBlock(nn.Module):
+    """One GRU update: motion encoder, SepConvGRU, flow head and the
+    upsampling-mask head (raft.py:260-288, the flax scan body)."""
+
+    def __init__(self, corr_channels, hidden_dim, context_dim, motion_dims,
+                 head_hidden, mask_hidden):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(corr_channels, motion_dims)
+        self.gru = SepConvGRU(hidden_dim, context_dim + motion_dims[4])
+        self.flow_head = FlowHead(hidden_dim, head_hidden)
+        self.mask_conv1 = nn.Conv2d(hidden_dim, mask_hidden, 3, padding=1)
+        self.mask_conv2 = nn.Conv2d(mask_hidden, 576, 1)
+
+    def forward(self, net, inp, corr, flow):
+        motion = self.encoder(flow, corr)
+        net = self.gru(net, torch.cat([inp, motion], dim=1))
+        return net, self.flow_head(net)
+
+    def mask(self, net):
+        return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)))
+
+
+def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Convex 8x upsampling: each output pixel is a softmax combination of its
+    coarse pixel's 3x3 neighbours. flow [B, 2, H, W], mask [B, 576, H, W]
+    (channel a*72 + b*9 + n) -> [B, 2, 8H, 8W]."""
+    B, _, H, W = flow.shape
+    mask = torch.softmax(mask.view(B, 1, 8, 8, 9, H, W), dim=4)
+    neigh = F.unfold(8.0 * flow, 3, padding=1).view(B, 2, 1, 1, 9, H, W)
+    up = (mask * neigh).sum(dim=4)                            # [B, 2, 8a, 8b, H, W]
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * H, 8 * W)
+
+
+class RAFT(nn.Module):
+    """RAFT on image pairs [B, H, W, 3] in [0, 255] -> flow [B, H, W, 2].
+
+    Defaults are the raft-things configuration; `compact_raft()` builds the
+    configuration of the repo's checkpoint. The GRU iterations are a Python
+    loop over one shared update block. The `lookup` attribute is the
+    correlation lookup, `ops.corr_lookup.lookup_corr` (kernel K1 on CUDA, plain
+    on the CPU); chip_smoke.py swaps in `lookup_corr_plain` to hold the net's
+    flow with K1 against the plain version on the card.
+    """
+
+    def __init__(self, num_levels=4, radius=4, hidden_dim=128, context_dim=128,
+                 enc_dim=256, enc_base=64, motion_dims=(256, 192, 128, 64, 128),
+                 head_hidden=256, mask_hidden=256, cnet_norm="batch"):
+        super().__init__()
+        self.num_levels = num_levels
+        self.radius = radius
+        self.hidden_dim = hidden_dim
+        self.lookup = lookup_corr
+        self.fnet = BasicEncoder(enc_dim, "instance", enc_base)
+        self.cnet = BasicEncoder(hidden_dim + context_dim, cnet_norm, enc_base)
+        self.update_block = UpdateBlock(
+            num_levels * (2 * radius + 1) ** 2, hidden_dim, context_dim,
+            tuple(motion_dims), head_hidden, mask_hidden)
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 20):
+        B = image1.shape[0]
+        imgs = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2)
+        imgs = 2.0 * (imgs / 255.0) - 1.0
+        fmaps = self.fnet(imgs)
+        cnet = self.cnet(imgs[:B])
+        net = torch.tanh(cnet[:, : self.hidden_dim])
+        inp = F.relu(cnet[:, self.hidden_dim:])
+
+        pyramid = build_corr_pyramid(fmaps[:B], fmaps[B:], self.num_levels)
+        del fmaps
+        H8, W8 = net.shape[-2:]
+        ys, xs = torch.meshgrid(
+            torch.arange(H8, dtype=torch.float32, device=net.device),
+            torch.arange(W8, dtype=torch.float32, device=net.device),
+            indexing="ij",
+        )
+        coords0 = torch.stack([xs, ys], dim=0).expand(B, 2, H8, W8)
+        coords1 = coords0
+        for _ in range(iters):
+            pts = coords1.permute(0, 2, 3, 1).reshape(B, H8 * W8, 2).contiguous()
+            corr = self.lookup(pyramid, pts, self.radius)        # [B, P, L*K]
+            corr = corr.view(B, H8, W8, -1).permute(0, 3, 1, 2)
+            net, delta = self.update_block(net, inp, corr, coords1 - coords0)
+            coords1 = coords1 + delta
+        # only the last iteration's mask is used (raft.py:370)
+        up = upsample_flow_convex(coords1 - coords0, self.update_block.mask(net))
+        return up.permute(0, 2, 3, 1)
+
+
+def compact_raft() -> RAFT:
+    """The small configuration of the repo's checkpoint (raft.py:373)."""
+    return RAFT(
+        hidden_dim=64,
+        context_dim=64,
+        enc_dim=128,
+        enc_base=32,
+        motion_dims=(96, 64, 48, 32, 64),
+        head_hidden=128,
+        mask_hidden=128,
+        cnet_norm="instance",
+    )
