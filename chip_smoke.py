@@ -4,20 +4,26 @@ against its plain version, drives the port's main path and checks its output.
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --profile  # also device time by kernel of one more run
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero):
   1. device  — CUDA required; card name and power limit from nvidia-smi.
-  2. build   — nvcc builds csrc/corr_lookup.cu (sm_90a).
+  2. build   — nvcc builds csrc/corr_lookup.cu (sm_90a); the r=4, 4-level
+               kernel's `-Xptxas -v` registers and spills (a spill fails
+               the run).
   3. kernel  — K1 vs the plain lookup at the main path's block shape
-               (8 pairs, 55x128 level 0, 4 levels, r=4): max error, exact
-               zeros out of range, and times (kernel, plain, F.grid_sample).
+               (8 pairs, 55x128 level 0, 4 levels, r=4) on synthetic
+               coordinates: max error, exact zeros off the map, times
+               (kernel, plain, F.grid_sample) and the bound.
   4. slice   — renders the acceptance set's seq_03_dyn (seed 0, 1024x436,
                48 frames) and runs `run_pipeline --assume_static --skip_sfm
                --set flow.selfcal=false` on the card: K1 launch count, finite
                flows, stride-1 EPE against the renderer's ground truth, tracks.
   5. net     — one block of 8 pairs through RAFT with K1 and with the plain
-               lookup on the card; the flows must agree.
+               lookup on the card; the flows must agree. `[kernel-net]`: the
+               measurements of phase 3 on the pyramid and coordinates of the
+               block's last GRU iteration (the net's own coordinates).
 The last two lines are the card's `name, power.limit` and
-{"ok": true, "device": {...}}; the line before them lists the kernels.
+{"ok": true, "device": {...}}; the line before them lists the kernels (the
+`*_net` keys are the `[kernel-net]` numbers).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import json
 import math
 import multiprocessing as mp
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,6 +102,18 @@ def render_sequence(frames: int, img_dir: Path):
     return np.stack([gt[i] for i in range(GT_PAIRS)])
 
 
+def ptxas_lines(log_text: str, entry: str):
+    """The `-Xptxas -v` lines (registers, shared memory, stack, spills) of
+    the kernel entries whose mangled name contains `entry`."""
+    mine, out = False, []
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            mine = entry in ln
+        elif mine and any(w in ln for w in ("registers", "smem", "spill")):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 # ------------------------------------------------------------------ timing --
 
 def time_ms(fn, launches: int = 20, rounds: int = 5, warmup: int = 3) -> float:
@@ -120,51 +139,59 @@ def time_ms(fn, launches: int = 20, rounds: int = 5, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------------ phases --
 
-def phase_kernel(dev, B=8, H8=55, W8=128):
-    """K1 vs plain at the main path's block shape; times and the bound."""
+def measure_lookup(tag: str, pyr, coords, r: int, vec: bool = True) -> dict:
+    """K1 vs plain on these inputs (max error, exact zeros where a level's
+    window lies off the map), times of K1, plain and one F.grid_sample per
+    level, and the bound from this data's byte count. `vec`: whether K1 must
+    copy these windows in 16-byte chunks (else 4-byte elements)."""
     import torch
     import torch.nn.functional as F
 
-    from particlesfm_tpu_torch.models.raft import build_corr_pyramid
     from particlesfm_tpu_torch.ops import corr_lookup as cl
 
-    D, r = 128, 4
-    P = H8 * W8
-    g = torch.Generator(device=dev).manual_seed(0)
-    f1 = torch.randn(B, D, H8, W8, generator=g, device=dev)
-    f2 = torch.randn(B, D, H8, W8, generator=g, device=dev)
-    pyr = build_corr_pyramid(f1, f2, 4)
-    del f1, f2
-    lo = torch.tensor([-2.0, -2.0], device=dev)
-    hi = torch.tensor([W8 + 1.0, H8 + 1.0], device=dev)
-    coords = lo + (hi - lo) * torch.rand(B, P, 2, generator=g, device=dev)
-    far = torch.rand(B, P, generator=g, device=dev) < 0.1
-    sign = torch.where(torch.rand(B, P, 1, generator=g, device=dev) < 0.5, 1.0, -1.0)
-    coords = torch.where(far[..., None], sign * torch.tensor([1000.0, -1000.0], device=dev),
-                         coords).contiguous()
-
+    B, P = coords.shape[:2]
+    before = cl.vec_launches
     out_k = cl.lookup_corr_cuda(pyr, coords, r)
+    copies = "16-byte" if cl.vec_launches > before else "4-byte"
+    if (copies == "16-byte") != vec:
+        fail(f"{tag}: K1 took the {copies} copies")
     out_p = cl.lookup_corr_plain(pyr, coords, r)
     max_err = float((out_k - out_p).abs().max())
     scale = float(pyr[0].abs().max())
     if not max_err <= 1e-5 * scale:
-        fail(f"kernel: max |K1 - plain| {max_err} > 1e-5 * max|corr| ({scale})")
-    if not bool((out_k[far] == 0).all()):
-        fail("kernel: out-of-range rows are not exactly 0")
+        fail(f"{tag}: max |K1 - plain| {max_err} > 1e-5 * max|corr| ({scale})")
+    K2 = (2 * r + 1) ** 2
+    n_off = 0
+    for lvl, c in enumerate(pyr):
+        Hl, Wl = c.shape[-2:]
+        pt = coords / 2 ** lvl
+        off = (pt[..., 0] >= Wl + r) | (pt[..., 1] >= Hl + r) | (pt.amin(-1) < -(r + 1))
+        n_off += int(off.sum())
+        if not bool((out_k[..., lvl * K2:(lvl + 1) * K2][off] == 0).all()):
+            fail(f"{tag}: level {lvl} windows off the map do not read exactly 0")
 
     ms = time_ms(lambda: cl.lookup_corr_cuda(pyr, coords, r))
+    host = []
+    for _ in range(5):             # host enqueue of one call, median of 5 x 20 calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cl.lookup_corr_cuda(pyr, coords, r)
+        host.append((time.perf_counter() - t0) / 20 * 1e3)
+    torch.cuda.synchronize()
+    host_ms = float(np.median(host))
     plain_ms = time_ms(lambda: cl.lookup_corr_plain(pyr, coords, r))
 
     # library yardstick: one F.grid_sample call per level (timed, never used)
     K = 2 * r + 1
-    d = torch.arange(-r, r + 1, dtype=torch.float32, device=dev)
+    d = torch.arange(-r, r + 1, dtype=torch.float32, device=coords.device)
     dy, dx = torch.meshgrid(d, d, indexing="ij")
     delta = torch.stack([dx, dy], -1)                            # [K, K, 2]
     grids, inputs = [], []
     for lvl, c in enumerate(pyr):
         Hl, Wl = c.shape[-2:]
         pts = coords.view(B * P, 1, 1, 2) / 2 ** lvl + delta       # [BP, K, K, 2]
-        norm = torch.tensor([2.0 / (Wl - 1), 2.0 / (Hl - 1)], device=dev)
+        norm = torch.tensor([2.0 / (Wl - 1), 2.0 / (Hl - 1)], device=coords.device)
         grids.append(pts * norm - 1.0)
         inputs.append(c.view(B * P, 1, Hl, Wl))
 
@@ -175,36 +202,57 @@ def phase_kernel(dev, B=8, H8=55, W8=128):
     out_l = torch.cat([o.view(B, P, K * K) for o in library()], -1)
     lib_err = float((out_l - out_p).abs().max())
     library_ms = time_ms(library)
+    del grids, inputs, out_l
 
-    # bound: bytes this run's data needs (output + coords + every pixel's
-    # in-map (2r+2)^2 window per level) over HBM bandwidth, vs ~13 flops
-    # per output over the fp32 rate
-    window_elems = 0
-    for lvl, c in enumerate(pyr):
-        Hl, Wl = c.shape[-2:]
-        pt = coords / 2 ** lvl
-        x0 = torch.floor(pt[..., 0]).clamp(-1e6, 1e6).long() - r
-        y0 = torch.floor(pt[..., 1]).clamp(-1e6, 1e6).long() - r
-        nx = (torch.minimum(x0 + 2 * r + 1, torch.tensor(Wl - 1, device=dev))
-              - torch.clamp(x0, min=0) + 1).clamp(min=0)
-        ny = (torch.minimum(y0 + 2 * r + 1, torch.tensor(Hl - 1, device=dev))
-              - torch.clamp(y0, min=0) + 1).clamp(min=0)
-        window_elems += int((nx * ny).sum())
-    n_out = B * P * len(pyr) * K * K
-    bytes_moved = 4 * (n_out + B * P * 2 + window_elems)
+    # bound: this data's bytes (output, coords, in-map windows) over HBM
+    # bandwidth, vs ~13 flops per output over the fp32 rate
+    bytes_moved = cl.lookup_bytes([c.shape[-2:] for c in pyr], coords, r)
+    n_out = B * P * len(pyr) * K2
     bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 13 * n_out / FP32_FLOPS * 1e3
-    res = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    res = dict(max_abs_err=max_err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
                bound_ms=max(bound_bytes_ms, bound_ops_ms),
                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
                bytes=bytes_moved)
-    log(f"[kernel] corr_lookup B={B} P={P} levels=4 r={r}: max|K1-plain| {max_err:.3e} "
-        f"(max|corr| {scale:.3f}), out-of-range rows exactly 0; K1 {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms "
-        f"(max|grid_sample-plain| {lib_err:.3e}); bound {res['bound_ms']:.4f} ms "
-        f"({bytes_moved / 1e6:.1f} MB, {res['bound_by']}) -> "
+    log(f"[{tag}] corr_lookup B={B} P={P} levels={len(pyr)} r={r} ({copies} copies, "
+        f"level 0 {pyr[0].shape[2]}x{pyr[0].shape[3]}): max|K1-plain| "
+        f"{max_err:.3e} (max|corr| {scale:.3f}); {n_off} (pixel, level) windows off the "
+        f"map read exactly 0; K1 {ms:.4f} ms (host enqueue {host_ms:.4f} ms/call), plain "
+        f"{plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms (max|grid_sample-plain| {lib_err:.3e}); bound "
+        f"{res['bound_ms']:.4f} ms ({bytes_moved / 1e6:.1f} MB, {res['bound_by']}) -> "
         f"{100 * res['bound_ms'] / ms:.1f}% of bound")
     return res
+
+
+def phase_kernel(dev, B=8, H8=55, W8=128):
+    """K1 vs plain at the main path's block shape on synthetic coordinates:
+    10% far out of range, the rest uniform over the map and its border. The
+    main path's widths take the 16-byte copies; the same at W8 - 1 (rows not
+    16-byte aligned) holds the 4-byte copies against plain."""
+    import torch
+
+    from particlesfm_tpu_torch.models.raft import build_corr_pyramid
+
+    D, r = 128, 4
+    g = torch.Generator(device=dev).manual_seed(0)
+    runs = []
+    for w8, vec in ((W8, True), (W8 - 1, False)):
+        P = H8 * w8
+        f1 = torch.randn(B, D, H8, w8, generator=g, device=dev)
+        f2 = torch.randn(B, D, H8, w8, generator=g, device=dev)
+        pyr = build_corr_pyramid(f1, f2, 4)
+        del f1, f2
+        lo = torch.tensor([-2.0, -2.0], device=dev)
+        hi = torch.tensor([w8 + 1.0, H8 + 1.0], device=dev)
+        coords = lo + (hi - lo) * torch.rand(B, P, 2, generator=g, device=dev)
+        far = torch.rand(B, P, generator=g, device=dev) < 0.1
+        sign = torch.where(torch.rand(B, P, 1, generator=g, device=dev) < 0.5, 1.0, -1.0)
+        coords = torch.where(far[..., None], sign * torch.tensor([1000.0, -1000.0], device=dev),
+                             coords).contiguous()
+        runs.append(measure_lookup("kernel" if vec else "kernel-4B", pyr, coords, r, vec))
+    return runs[0]
 
 
 def profile_pipeline(dev, img_dir: Path, cfg) -> None:
@@ -229,6 +277,10 @@ def profile_pipeline(dev, img_dir: Path, cfg) -> None:
     for e in rows[:20]:
         log(f"[profile] {e.self_device_time_total / 1e3:10.1f} ms  x{e.count:<6} "
             f"{e.key[:100]}")
+    for e in rows:
+        if "corr_lookup_kernel" in e.key:
+            log(f"[profile] K1 in run_pipeline: {e.count} launches, "
+                f"{e.self_device_time_total / 1e3 / max(e.count, 1):.4f} ms device time each")
 
 
 def phase_slice(dev, frames: int, profile_run: bool = False):
@@ -262,20 +314,23 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
     stages.flow_stage = kept_flow_stage
     try:
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         cl.reset_launches()
         t0 = time.perf_counter()
         tracks = R.run_pipeline(img_dir, out_dir, cfg, log=msgs.append, device=dev)
         wall = time.perf_counter() - t0
-        launches = cl.launches
+        launches, vec_launches = cl.launches, cl.vec_launches
     finally:
         stages.flow_stage = flow_stage
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9   # the run's own
 
     n_pairs = 2 * (frames - 1) + 2 * (frames - 2)
     blocks = math.ceil(n_pairs / cfg.flow.per_device)
     if launches != blocks * cfg.flow.iters:
         fail(f"slice: K1 launched {launches} times, expected {blocks} blocks x "
              f"{cfg.flow.iters} iterations")
+    if vec_launches != launches:
+        fail(f"slice: {launches - vec_launches} of {launches} K1 launches took 4-byte copies")
     for name in ("flow_f", "flow_b", "flow_f2", "flow_b2"):
         if not bool(torch.isfinite(flows[name]).all()):
             fail(f"slice: non-finite values in {name}")
@@ -293,7 +348,8 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
     stage_s = {ln.split()[0]: float(ln.split()[1].rstrip("s")) for ln in timings[1:]}
     log(f"[slice] run_pipeline {wall:.2f}s: stages {json.dumps(stage_s)}; "
         f"{n_pairs} pairs in {blocks} blocks, net+refine {net_s:.3f}s = "
-        f"{n_pairs / net_s:.2f} pairs/s; K1 launches {launches}; "
+        f"{n_pairs / net_s:.2f} pairs/s; K1 launches {launches} ({vec_launches} with "
+        f"16-byte copies); "
         f"stride-1 EPE median {epe_median:.4f} px, per-pair mean "
         f"{np.round(epe_mean_pairs, 4).tolist()}; {n_long} tracks of length >= 3 "
         f"over {tracks.num_frames} frames; peak allocated {peak_gb:.2f} GB")
@@ -303,6 +359,9 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
 
 
 def phase_net(dev, img_dir: Path):
+    """One block through RAFT with K1 and with the plain lookup: the flows
+    must agree. K1 is then measured on the pyramid and the coordinates of
+    the block's last GRU iteration (the net's own coordinates)."""
     import torch
     import torch.nn.functional as F
 
@@ -317,8 +376,14 @@ def phase_net(dev, img_dir: Path):
     x = F.pad(x, (0, (-x.shape[-1]) % 8, 0, (-x.shape[-2]) % 8), mode="replicate")
     x = x.permute(0, 2, 3, 1).contiguous()
     model, _ = load_model(DEFAULT_RAFT_CKPT, dev)
+    last = {}
+
+    def keep_last(pyramid, pts, radius):
+        last.update(pyramid=pyramid, coords=pts, radius=radius)
+        return lookup_corr(pyramid, pts, radius)
+
     with torch.inference_mode():
-        model.lookup = lookup_corr
+        model.lookup = keep_last
         fk = model(x[:n], x[1:], iters=8)
         model.lookup = lookup_corr_plain
         fp = model(x[:n], x[1:], iters=8)
@@ -328,6 +393,9 @@ def phase_net(dev, img_dir: Path):
         fail(f"net: K1 vs plain flows differ by mean {mean_d} / max {max_d} px")
     log(f"[net] RAFT block of {n} pairs at {x.shape[2]}x{x.shape[1]}: K1 vs plain lookup "
         f"flow |diff| mean {mean_d:.3e} px, max {max_d:.3e} px")
+    del fk, fp, d
+    with torch.inference_mode():
+        return measure_lookup("kernel-net", last["pyramid"], last["coords"], last["radius"])
 
 
 def main(argv=None) -> int:
@@ -355,16 +423,17 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f}s")
     ptxas = Path(so._name).with_suffix(".log")
     if ptxas.exists():
-        for ln in ptxas.read_text().splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"[build] {ln.strip()}")
+        for ln in ptxas_lines(ptxas.read_text(), "corr_lookup_kernelILi4ELi4E"):
+            log(f"[build] {ln}")
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail("build: the r=4, 4-level kernel spills registers")
 
     k = phase_kernel(dev)
     if WORK.exists():
         shutil.rmtree(WORK)
     try:
         s = phase_slice(dev, FRAMES, args.profile)
-        phase_net(dev, s["img_dir"])
+        kn = phase_net(dev, s["img_dir"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -374,7 +443,9 @@ def main(argv=None) -> int:
         replaces="particlesfm_tpu/ops/corr_lookup.py:62",
         launches=s["launches"], max_abs_err=k["max_abs_err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-        library_ms=k["library_ms"])]
+        library_ms=k["library_ms"], ms_net=kn["ms"], plain_ms_net=kn["plain_ms"],
+        library_ms_net=kn["library_ms"], bound_ms_net=kn["bound_ms"],
+        max_abs_err_net=kn["max_abs_err"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,11 @@ bound with ctypes (plain C interface: no torch headers, a build of seconds).
 
 Dispatch: tensors on the CPU take the plain version (`lookup_corr_plain`);
 tensors on CUDA always launch the kernel — a failed build or launch raises,
-there is no fallback. `launches` counts kernel launches.
+there is no fallback. The kernel is compiled for radius 1..4 and 1..4 levels
+(`RADII`, `MAX_LEVELS`); any other shape raises `ValueError` on CUDA.
+`launches` counts kernel launches, `vec_launches` those that copied the
+windows in 16-byte chunks. `lookup_bytes` is the byte count of the kernel's
+bound.
 """
 from __future__ import annotations
 
@@ -26,15 +30,17 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "corr_lookup.cu"
 BUILD_DIR = _PKG / "_build"
 MAX_LEVELS = 4
+RADII = (1, 2, 3, 4)    # the radii the kernel is compiled for
 
 launches = 0            # kernel launches since import (or the last reset)
-_lib = None
+vec_launches = 0        # those of them that copied windows in 16-byte chunks
+_lib = None             # the loaded library
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, vec_launches
+    launches = vec_launches = 0
 
 
 def lookup_corr_plain(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -77,6 +83,28 @@ def lookup_corr_plain(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.T
     return torch.cat(out, dim=-1)
 
 
+def lookup_bytes(shapes, coords: torch.Tensor, radius: int = 4) -> int:
+    """Bytes a lookup must move for these coordinates: the output written
+    once, the coordinates read once, and each pixel's (2r+2)^2 window per
+    level read once where it lies inside the map.
+
+    shapes: the levels' (Hl, Wl); coords: [B, P, 2] (x, y) at level-0 scale.
+    The window of a level starts at floor(coords / 2^l) - r."""
+    B, P = coords.shape[:2]
+    r = radius
+    window_elems = 0
+    for lvl, (Hl, Wl) in enumerate(shapes):
+        pt = coords.double() / 2 ** lvl
+        n = []
+        for c, size in ((pt[..., 0], Wl), (pt[..., 1], Hl)):
+            lo = torch.floor(c).clamp(-1e9, 1e9).long() - r
+            hi = lo + 2 * r + 1
+            n.append((hi.clamp(max=size - 1) - lo.clamp(min=0) + 1).clamp(min=0))
+        window_elems += int((n[0] * n[1]).sum())
+    n_out = B * P * len(shapes) * (2 * r + 1) ** 2
+    return 4 * (n_out + B * P * 2 + window_elems)
+
+
 def _build_library() -> Path:
     """Compile csrc/corr_lookup.cu for sm_90a; the file name carries a hash
     of the source, so an edited source is rebuilt."""
@@ -111,22 +139,28 @@ def load_library():
             fn = lib.corr_lookup_launch
             fn.argtypes = ([ctypes.c_void_p] * MAX_LEVELS + [ctypes.c_int] * (2 * MAX_LEVELS)
                            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
 def lookup_corr_cuda(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
-    """Launch kernel K1 on CUDA tensors (same contract as lookup_corr_plain)."""
-    global launches
+    """Launch kernel K1 on CUDA tensors (same contract as lookup_corr_plain).
+    Pyramids whose levels all have 16-byte aligned rows (Wl % 4 == 0) are
+    copied in 16-byte chunks, any other shape in 4-byte elements."""
+    global launches, vec_launches
     L = len(pyramid)
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"corr_lookup: 1..{MAX_LEVELS} levels, got {L}")
+    if radius not in RADII:
+        raise ValueError(f"corr_lookup: the kernel takes radius {RADII}, got {radius}")
     B, P = coords.shape[:2]
     if coords.shape != (B, P, 2) or coords.dtype != torch.float32 or not coords.is_cuda \
-            or not coords.is_contiguous():
-        raise ValueError("corr_lookup: coords must be contiguous float32 [B, P, 2] on CUDA")
+            or not coords.is_contiguous() or coords.data_ptr() % 8:
+        raise ValueError("corr_lookup: coords must be contiguous, 8-byte aligned float32 "
+                         "[B, P, 2] on CUDA")
     for c in pyramid:
         if c.dim() != 4 or c.shape[:2] != (B, P) or c.dtype != torch.float32 \
                 or c.device != coords.device or not c.is_contiguous():
@@ -142,12 +176,15 @@ def lookup_corr_cuda(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Te
     for c in pyramid:
         hw += [c.shape[2], c.shape[3]]
     hw += [0, 0] * pad
+    used_vec = ctypes.c_int()
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*ptrs, *hw, L, coords.data_ptr(), out.data_ptr(), B * P, radius, stream)
+        rc = fn(*ptrs, *hw, L, coords.data_ptr(), out.data_ptr(), B * P, radius, stream,
+                coords.device.index, ctypes.byref(used_vec))
     if rc != 0:
         raise RuntimeError(f"corr_lookup: kernel launch failed (cudaError {rc})")
     launches += 1
+    vec_launches += used_vec.value
     return out
 
 

@@ -5,6 +5,7 @@ the port only (no JAX), so it runs on a GPU machine without the reference:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,65 @@ def cuda():
     return torch.device("cuda")
 
 
+def _pyramid(dev, B, H8, W8, levels):
+    g = torch.Generator(device=dev).manual_seed(0)
+    f1 = torch.randn(B, 64, H8, W8, generator=g, device=dev)
+    f2 = torch.randn(B, 64, H8, W8, generator=g, device=dev)
+    return build_corr_pyramid(f1, f2, levels)
+
+
+def _coords(kind, B, H8, W8, levels, radius):
+    """[B, H8*W8, 2] level-0 coordinates of one kind; the edge kinds hit each
+    level's edges at that level's scale (coords / 2^l)."""
+    rng = np.random.default_rng(1)
+    P = H8 * W8
+    ys, xs = np.mgrid[0:H8, 0:W8]
+    grid = np.broadcast_to(np.stack([xs, ys], -1).reshape(1, P, 2), (B, P, 2)).astype(np.float32)
+    lvl = rng.integers(0, levels, (B, P, 2))
+    scale = 2.0 ** lvl
+    hw = np.array([(H8 >> l, W8 >> l) for l in range(levels)], np.float64)[lvl, [1, 0]]
+    if kind == "uniform":             # over the map and its border, 20% far out
+        c = rng.uniform(-4, 1, (B, P, 2)) + rng.uniform(0, 1, (B, P, 2)) * [W8 + 8, H8 + 8]
+        far = rng.random((B, P)) < 0.2
+        c[far] = [-1e4, 3e4]
+    elif kind == "integer":
+        c = grid + rng.integers(-3, 4, (B, P, 2))
+    elif kind == "edges":             # exactly Wl-1 / Hl-1 or -1 at level l
+        c = np.where(rng.random((B, P, 2)) < 0.5, hw - 1, -1.0) * scale
+    elif kind == "below_zero":        # just below 0 on one axis, in range on the other
+        c = grid.astype(np.float64)
+        axis = rng.integers(0, 2, (B, P))
+        eps = rng.choice([1e-7, 1e-3, 0.3, 0.999], (B, P)) * scale[..., 0]
+        np.put_along_axis(c, axis[..., None], -eps[..., None], axis=-1)
+    else:                             # "clamp": centre in (Wl+r, Wl+r+1) or (-(r+2), -(r+1))
+        u = rng.uniform(0.01, 0.99, (B, P, 2))
+        c = np.where(rng.random((B, P, 2)) < 0.5, hw + radius + u, -(radius + 1 + u)) * scale
+        keep = rng.random((B, P)) < 0.5
+        c[keep, 1] = grid[keep, 1]
+    return torch.from_numpy(np.ascontiguousarray(c, dtype=np.float32))
+
+
+def _check(pyr, coords, radius):
+    """K1 against plain: one launch, 16-byte copies exactly when every level's
+    width is a multiple of 4, within 1e-5 * max|corr|, and a level whose
+    window lies off the map reads exactly 0."""
+    before, before_vec = cl.launches, cl.vec_launches
+    got = cl.lookup_corr(pyr, coords, radius)
+    assert cl.launches == before + 1
+    assert cl.vec_launches - before_vec == all(c.shape[-1] % 4 == 0 for c in pyr)
+    want = cl.lookup_corr_plain(pyr, coords, radius)
+    torch.cuda.synchronize()
+    scale = float(pyr[0].abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    K2 = (2 * radius + 1) ** 2
+    for lvl, c in enumerate(pyr):
+        Hl, Wl = c.shape[-2:]
+        p = coords / 2 ** lvl
+        off = ((p[..., 0] >= Wl + radius) | (p[..., 1] >= Hl + radius)
+               | (p.amin(-1) < -(radius + 1)))
+        assert bool((got[..., lvl * K2:(lvl + 1) * K2][off] == 0).all())
+
+
 @pytest.mark.parametrize("B,H8,W8,levels,radius", [
     (8, 55, 128, 4, 4),      # the main path's block at 1024x436
     (3, 13, 21, 4, 4),       # odd sizes: level 3 is 1x2
@@ -28,23 +88,38 @@ def cuda():
     (1, 9, 10, 1, 3),
 ])
 def test_corr_lookup_kernel_matches_plain(cuda, B, H8, W8, levels, radius):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    f1 = torch.randn(B, 64, H8, W8, generator=g, device=cuda)
-    f2 = torch.randn(B, 64, H8, W8, generator=g, device=cuda)
-    pyr = build_corr_pyramid(f1, f2, levels)
-    P = H8 * W8
-    coords = torch.rand(B, P, 2, generator=g, device=cuda) * torch.tensor(
-        [W8 + 8.0, H8 + 8.0], device=cuda) - 4.0
-    far = torch.rand(B, P, generator=g, device=cuda) < 0.2
-    coords[far] = torch.tensor([-1e4, 3e4], device=cuda)
-    before = cl.launches
-    got = cl.lookup_corr(pyr, coords, radius)
-    assert cl.launches == before + 1
-    want = cl.lookup_corr_plain(pyr, coords, radius)
-    torch.cuda.synchronize()
-    scale = float(pyr[0].abs().max())
-    assert float((got - want).abs().max()) <= 1e-5 * scale
-    assert bool((got[far] == 0).all())
+    pyr = _pyramid(cuda, B, H8, W8, levels)
+    _check(pyr, _coords("uniform", B, H8, W8, levels, radius).to(cuda), radius)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", cl.RADII)
+def test_corr_lookup_every_instantiation(cuda, radius, levels):
+    # B*P = 546 / 418 is not a multiple of the 16-pixel tile; width 21 takes
+    # the 4-byte copies, width 32 (levels 32..4) the 16-byte ones
+    for H8, W8 in ((13, 21), (13, 32)):
+        pyr = _pyramid(cuda, 2, H8, W8, levels)
+        _check(pyr, _coords("uniform", 2, H8, W8, levels, radius).to(cuda), radius)
+
+
+@pytest.mark.parametrize("radius", [1, 4])
+@pytest.mark.parametrize("kind", ["integer", "edges", "below_zero", "clamp"])
+def test_corr_lookup_edge_coordinates(cuda, kind, radius):
+    for B, H8, W8 in ((3, 13, 21), (1, 9, 10), (2, 9, 32)):
+        pyr = _pyramid(cuda, B, H8, W8, 4)
+        _check(pyr, _coords(kind, B, H8, W8, 4, radius).to(cuda), radius)
+
+
+def test_corr_lookup_repeated_launches(cuda):
+    # the launch set-up is cached per instantiation and device: later launches
+    # of one instantiation, with fewer and with more tiles than resident
+    # blocks, give the same result as the first
+    for B, H8, W8 in ((8, 55, 128), (1, 9, 12), (8, 55, 128)):
+        pyr = _pyramid(cuda, B, H8, W8, 4)
+        coords = _coords("uniform", B, H8, W8, 4, 4).to(cuda)
+        first = cl.lookup_corr(pyr, coords, 4)
+        _check(pyr, coords, 4)
+        assert torch.equal(cl.lookup_corr(pyr, coords, 4), first)
 
 
 def test_corr_lookup_kernel_rejects_bad_input(cuda):
@@ -53,3 +128,12 @@ def test_corr_lookup_kernel_rejects_bad_input(cuda):
         cl.lookup_corr_cuda(pyr, torch.zeros(1, 4, 2, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         cl.lookup_corr_cuda(pyr * 5, torch.zeros(1, 4, 2, device=cuda))
+
+
+@pytest.mark.parametrize("radius", [0, 5])
+def test_corr_lookup_rejects_unsupported_radius(cuda, radius):
+    pyr = [torch.zeros(1, 4, 12, 12, device=cuda)]
+    before = cl.launches
+    with pytest.raises(ValueError):
+        cl.lookup_corr(pyr, torch.zeros(1, 4, 2, device=cuda), radius)
+    assert cl.launches == before
