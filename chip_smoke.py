@@ -3,6 +3,7 @@ against its plain version, drives the port's main path and checks its output.
 
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --profile  # also device time by kernel of one more run
+    python3 chip_smoke.py --dump DIR  # also the checks' inputs, for the JAX compare
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device  — CUDA required; card name and power limit from nvidia-smi.
@@ -14,9 +15,19 @@ Phases (each prints its lines; any failure exits non-zero):
                coordinates: max error, exact zeros off the map, times
                (kernel, plain, F.grid_sample) and the bound.
   4. slice   — renders the acceptance set's seq_03_dyn (seed 0, 1024x436,
-               48 frames) and runs `run_pipeline --assume_static --skip_sfm
-               --set flow.selfcal=false` on the card: K1 launch count, finite
-               flows, stride-1 EPE against the renderer's ground truth, tracks.
+               48 frames) and runs `run_pipeline --skip_sfm` on the card: K1
+               launch count, finite flows, stride-1 EPE against the
+               renderer's ground truth, tracks; then
+               [selfcal]   selfcal.json interior and within 6% of the
+                           renderer's focal; the card's estimate from the
+                           run's flows against the CPU's, same draws;
+               [depth]     48 normalized frames; the run's depth apply on the
+                           card against the CPU on a block of 4 frames, and
+                           against the run's own depth; correlation with GT;
+               [motionseg] the labeled tracks of a stage that ran; the run's
+                           seg apply on the card against the CPU on the first
+                           and the last (padded) chunk of the run's own
+                           input, and against the run's labels; IoU vs GT.
   5. net     — one block of 8 pairs through RAFT with K1 and with the plain
                lookup on the card; the flows must agree. `[kernel-net]`: the
                measurements of phase 3 on the pyramid and coordinates of the
@@ -82,24 +93,33 @@ def _scene(frames: int, seed: int, idx: int, h: int, w: int):
 
 
 def _render_frame(job):
-    """Worker: write frame i as PPM; return GT stride-1 flow i->i+1 if asked."""
+    """Worker: write frame i as PPM; return its GT moving-object mask and,
+    for the first GT_PAIRS frames, the GT stride-1 flow i->i+1 and the GT
+    normalized inverse depth."""
     from PIL import Image
 
     i, frames, seq, img_dir, want_gt = job
     sc = _scene(frames, **seq)
     Image.fromarray(sc.render(i)).save(Path(img_dir) / f"{i:06d}.ppm")
-    return i, (sc.gt_flow(i, i + 1) if want_gt else None)
+    extra = (sc.gt_flow(i, i + 1), sc.gt_inverse_depth_norm(i)) if want_gt else None
+    return i, sc.gt_dynamic(i), extra
 
 
-def render_sequence(frames: int, img_dir: Path):
+def render_sequence(frames: int, img_dir: Path) -> dict:
+    """Frames as PPM files; GT flow and inverse depth of the first GT_PAIRS
+    frames, moving-object masks of all, and the scene's focal."""
     img_dir.mkdir(parents=True, exist_ok=True)
     jobs = [(i, frames, SEQ, str(img_dir), i < GT_PAIRS) for i in range(frames)]
-    gt = {}
+    dyn, extra = {}, {}
     with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        for i, flow in pool.imap_unordered(_render_frame, jobs):
-            if flow is not None:
-                gt[i] = flow
-    return np.stack([gt[i] for i in range(GT_PAIRS)])
+        for i, d, e in pool.imap_unordered(_render_frame, jobs):
+            dyn[i] = d
+            if e is not None:
+                extra[i] = e
+    return dict(flow=np.stack([extra[i][0] for i in range(GT_PAIRS)]),
+                inv_depth=np.stack([extra[i][1] for i in range(GT_PAIRS)]),
+                dynamic=np.stack([dyn[i] for i in range(frames)]),
+                focal=float(_scene(frames, **SEQ).K[0]))
 
 
 def ptxas_lines(log_text: str, entry: str):
@@ -283,6 +303,186 @@ def profile_pipeline(dev, img_dir: Path, cfg) -> None:
                 f"{e.self_device_time_total / 1e3 / max(e.count, 1):.4f} ms device time each")
 
 
+def check_selfcal(out_dir: Path, msgs, flows, gt_focal: float) -> dict:
+    """selfcal.json of the run: interior and within 6% of the renderer's
+    focal. The card's estimate from the run's flows against the CPU's, with
+    the same injected RANSAC draws (the reference's): within 1e-3. Returns
+    the card's correspondences, the draws and both focals for --dump."""
+    from particlesfm_tpu_torch.globalsfm import selfcal
+
+    p = out_dir / "selfcal.json"
+    if not p.exists():
+        fail("selfcal: the flow stage wrote no selfcal.json")
+    info = json.loads(p.read_text())
+    secs = next(float(m.split("selfcal: ")[1].rstrip("s")) for m in msgs
+                if m.startswith("[flow] selfcal:"))
+    miss = info["focal"] / gt_focal - 1
+    log(f"[selfcal] focal {info['focal']:.2f} px (renderer {gt_focal:.2f} px, "
+        f"{100 * miss:+.2f}%), confidence {info['confidence']:.3f}, dip "
+        f"{info['dip']:.4f}, num_pairs {info['num_pairs']}, interior "
+        f"{info['interior']}; {secs:.3f}s in the flow stage")
+    if not info["interior"]:
+        fail("selfcal: the focal is a boundary minimum (interior false)")
+    if not abs(miss) <= 0.06:
+        fail(f"selfcal: focal {info['focal']} misses the renderer's {gt_focal} by "
+             f"{100 * miss:+.2f}% (> 6%)")
+
+    ff = {k: flows[k] for k in ("flow_f", "flow_b")}
+    # the draws the reference makes under PRNGKey(0), so that --dump lets
+    # the JAX package run on the same correspondences with the same draws
+    u_f, u_h = selfcal.reference_draws(0, selfcal.num_selfcal_pairs(ff["flow_f"].shape[0]))
+    H, W = ff["flow_f"].shape[1:3]
+    t0 = time.perf_counter()
+    card = selfcal.estimate_focal_from_flows(ff, H, W, u_f=u_f, u_h=u_h)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = selfcal.estimate_focal_from_flows({k: v.cpu() for k, v in ff.items()}, H, W,
+                                            u_f=u_f, u_h=u_h)
+    t_cpu = time.perf_counter() - t0
+    rel = card["focal"] / cpu["focal"] - 1
+    log(f"[selfcal] card vs CPU, the reference's draws: focal {card['focal']:.3f} / "
+        f"{cpu['focal']:.3f} px ({rel:+.2e}), confidence {card['confidence']:.3f} / "
+        f"{cpu['confidence']:.3f}, num_pairs {card['num_pairs']} / {cpu['num_pairs']}; "
+        f"{t_card:.3f}s / {t_cpu:.3f}s")
+    if not abs(rel) <= 1e-3:
+        fail(f"selfcal: card focal {card['focal']} vs CPU {cpu['focal']} ({rel:+.2e}) "
+             "differ by more than 1e-3")
+    uv1, uv2, ok = (x.cpu().numpy() for x in selfcal.flow_correspondences(ff, H, W))
+    return dict(sc_uv1=uv1, sc_uv2=uv2, sc_ok=ok, sc_u_f=u_f.numpy(), sc_u_h=u_h.numpy(),
+                sc_hw=np.array([H, W]), sc_focal_card=np.float64(card["focal"]),
+                sc_conf_card=np.float64(card["confidence"]),
+                sc_pairs_card=np.int64(card["num_pairs"]), sc_focal_run=np.float64(info["focal"]))
+
+
+def check_depth(dev, cfg, depths, img_dir: Path, gt_inv_depth) -> dict:
+    """48 finite frames each spanning exactly [0, 1]; the run's depth apply
+    (`_load_depth_apply`: blocks of 4 frames, float16 rounding) on the card
+    against the CPU on the first block of 4 full frames: normalized depth
+    before the rounding within 1e-3, and the card's rounded output against
+    the run's own depth of those frames; Pearson correlation with GT."""
+    import torch
+
+    from particlesfm_tpu_torch.io.images import load_image_stack
+    from particlesfm_tpu_torch.models import depth as depth_mod
+    from particlesfm_tpu_torch.pipeline.run import _load_depth_apply
+    from particlesfm_tpu_torch.pipeline.stages import upload_frame_stack
+
+    if depths.shape[0] != FRAMES or not bool(torch.isfinite(depths).all()):
+        fail(f"depth: {depths.shape[0]} frames, finite {bool(torch.isfinite(depths).all())}")
+    lo, hi = depths.amin(dim=(1, 2)), depths.amax(dim=(1, 2))
+    if not (bool((lo == 0).all()) and bool((hi == 1).all())):
+        fail(f"depth: per-frame min {lo.min()}..{lo.max()}, max {hi.min()}..{hi.max()}")
+    n = 4
+    images, _ = load_image_stack(img_dir)
+    stack = upload_frame_stack(images[:n], "cpu")
+    # the apply binds normalize_depth when it is built: wrap it to keep the
+    # normalized depth before the float16 rounding
+    orig, raw, rounded = depth_mod.normalize_depth, [], []     # card, CPU
+    try:
+        for d in (dev, torch.device("cpu")):
+            kept = []
+            depth_mod.normalize_depth = lambda x, kept=kept: kept.append(orig(x)) or kept[-1]
+            rounded.append(_load_depth_apply(cfg, d)(stack.to(d)).cpu())
+            raw.append(torch.cat(kept).cpu())
+    finally:
+        depth_mod.normalize_depth = orig
+    diff = float((raw[0] - raw[1]).abs().max())
+    vs_run = float((rounded[0] - depths[:n].cpu()).abs().max())
+    pred = depths[:GT_PAIRS].reshape(GT_PAIRS, -1).double().cpu().numpy()
+    gt = gt_inv_depth.reshape(GT_PAIRS, -1)
+    r = np.mean([np.corrcoef(p, g)[0, 1] for p, g in zip(pred, gt)])
+    log(f"[depth] {depths.shape[0]} frames at {depths.shape[2]}x{depths.shape[1]}, each "
+        f"in [0, 1]; the run's depth apply, card vs CPU on a block of {n} frames: max "
+        f"|diff| {diff:.3e} before the float16 rounding; card's rounded output vs the "
+        f"run's depth: max |diff| {vs_run:.3e}; mean Pearson r with the renderer's "
+        f"inverse depth over {GT_PAIRS} frames {r:.4f}")
+    if not diff <= 1e-3:
+        fail(f"depth: card vs CPU max |diff| {diff} > 1e-3")
+    if not vs_run <= 2.0 ** -11:
+        fail(f"depth: the apply's card output differs from the run's depth by {vs_run}")
+    return dict(images=stack.numpy(), depth=depths.to(torch.float16).cpu().numpy())
+
+
+def check_motionseg(dev, cfg, out_dir: Path, msgs, tracks, depths, gt_dynamic) -> dict:
+    """The labeled tracks of a seg stage that ran. The run's seg apply on
+    the card against the CPU on the first and the last (zero-padded) chunk
+    of the run's own model input (every window, as `segment_tracks` samples
+    and chunks it): logits within 1e-3, labels equal except where
+    |logit| < 1e-3; the card's decisions on those chunks against the run's
+    labels in the windows that share no frame. IoU of the dynamic tracks
+    against the renderer's (majority vote per track)."""
+    import torch
+
+    from particlesfm_tpu_torch.motionseg.data import find_traj_label
+    from particlesfm_tpu_torch.motionseg.infer import track_chunks, window_batch
+    from particlesfm_tpu_torch.pipeline.run import _load_seg_apply
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    p = out_dir / "trajectories_labeled" / "tracks.npz"
+    if not p.exists():
+        fail("motionseg: no trajectories_labeled/tracks.npz")
+    lab = TrackArrays.load(p)
+    if lab.labels is None or lab.labels.shape != lab.mask.shape:
+        fail("motionseg: the labeled tracks have no labels plane of the tracks' shape")
+    if any("degrading to assume-static" in m for m in msgs):
+        fail("motionseg: the pipeline degraded to assume-static")
+    fwd = next(m for m in msgs if m.startswith("[motionseg] window-sample"))
+    frac = float(lab.labels[lab.mask].mean())
+
+    H, W = gt_dynamic.shape[1:]
+    wins, samples, traj, valid = window_batch(
+        tracks, (H, W), cfg.motionseg.window_size, cfg.motionseg.traj_max_num)
+    chunks = track_chunks(traj, valid)
+    width = chunks[0][0].shape[1]
+    depth = depths[torch.as_tensor(np.stack(wins), device=depths.device)]
+    apply = [_load_seg_apply(cfg, d) for d in (dev, torch.device("cpu"))]   # card, CPU
+    thr = apply[0].threshold
+    thr = cfg.motionseg.threshold if thr is None or abs(cfg.motionseg.threshold - 0.5) > 1e-9 \
+        else thr
+    frames_used = np.bincount(np.concatenate(wins))
+    diff, flips, run_mismatch, checked, dump = 0.0, 0, 0, 0, {}
+    picked = sorted({0, len(chunks) - 1})
+    for c in picked:
+        t, v = chunks[c]
+        lg_card = apply[0](t, depth, v)
+        lg = [lg_card.cpu().numpy(), apply[1](t, depth.cpu(), v).cpu().numpy()]
+        diff = max(diff, float(np.abs(lg[0] - lg[1]).max()))
+        flips += int(((lg[0] > 0) != (lg[1] > 0))[np.abs(lg[1]) >= 1e-3].sum())
+        dyn = (torch.sigmoid(lg_card) > thr).cpu().numpy()
+        for b, (win, (_locs, present, rows)) in enumerate(zip(wins, samples)):
+            if (frames_used[win] > 1).any():
+                continue          # labels there merge two windows
+            sel = np.arange(c * width, min(len(rows), (c + 1) * width))
+            got = lab.labels[rows[sel][:, None], win[None, :]]
+            wrong = ((got != dyn[b, sel - c * width][:, None]) & present[sel]).any(1)
+            run_mismatch += int((wrong & (np.abs(lg[0][b, sel - c * width]) >= 1e-3)).sum())
+            checked += len(sel)
+        dump.update({f"seg_traj_{c}": t, f"seg_valid_{c}": v, f"seg_logits_{c}": lg[0]})
+    real_last = int(chunks[-1][1].any(-1).sum())
+
+    gt = find_traj_label(lab.xy, lab.mask, gt_dynamic) > 0.5
+    pred = (lab.labels * lab.mask).sum(1) > 0.5 * np.maximum(lab.mask.sum(1), 1)
+    iou = (pred & gt).sum() / max((pred | gt).sum(), 1)
+    log(f"[motionseg] {lab.num_tracks} labeled tracks, dynamic fraction of observations "
+        f"{frac:.4f}; {fwd.split('[motionseg] ')[1]}; seg apply card vs CPU on chunks "
+        f"{picked} of {len(chunks)} ({len(wins)} windows x {width} "
+        f"slots each; the last holds {real_last} sampled tracks and "
+        f"{len(wins) * width - real_last} padded slots): max |logit diff| {diff:.3e}, "
+        f"{flips} label flips away from the decision; the card's decisions vs the run's "
+        f"labels on {checked} tracks of the windows that share no frame: {run_mismatch} "
+        f"differ; dynamic-track IoU against the renderer {iou:.4f} "
+        f"({int(pred.sum())} predicted, {int(gt.sum())} GT dynamic tracks)")
+    if not diff <= 1e-3:
+        fail(f"motionseg: card vs CPU logits differ by {diff} > 1e-3")
+    if flips:
+        fail(f"motionseg: {flips} labels differ between card and CPU with |logit| >= 1e-3")
+    if run_mismatch or not checked:
+        fail(f"motionseg: {run_mismatch} of {checked} checked tracks carry labels other "
+             "than the seg apply's decisions on the run's chunks")
+    dump.update(seg_wins=np.stack(wins), seg_chunks=np.array(picked))
+    return dump
+
+
 def phase_slice(dev, frames: int, profile_run: bool = False):
     import torch
 
@@ -298,31 +498,41 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
         f"{SEQ['w']}x{SEQ['h']} in {time.perf_counter() - t0:.1f}s (host pool)")
 
     args = R.build_arg_parser().parse_args([
-        "--image_dir", str(img_dir), "--output_dir", str(out_dir),
-        "--assume_static", "--skip_sfm", "--set", "flow.selfcal=false"])
+        "--image_dir", str(img_dir), "--output_dir", str(out_dir), "--skip_sfm"])
     cfg = R.config_from_args(args)
     msgs = []
-    flows = {}
-    flow_stage = stages.flow_stage
+    kept, stage_gb, peak = {}, {}, [0]
+    names = ("flow_stage", "tracking_stage", "depth_stage", "motionseg_stage")
+    originals = {n: getattr(stages, n) for n in names}
 
-    def kept_flow_stage(*a, **kw):
-        # keep the flow stage's result (tensors on the card) to score it
-        # after the timed run; the run itself writes no .flo files
-        flows.update(flow_stage(*a, **kw))
-        return flows
+    def measured(name, fn):
+        """Keep the stage's result (tensors on the card, checked after the
+        timed run; the run itself writes no .flo files or depth PNGs) and its
+        peak allocation above what was resident when it started."""
+        def run_stage(*a, **kw):
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kept[name] = fn(*a, **kw)
+            stage_gb[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            return kept[name]
+        return run_stage
 
-    stages.flow_stage = kept_flow_stage
+    for n in names:
+        setattr(stages, n, measured(n, originals[n]))
     try:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         cl.reset_launches()
         t0 = time.perf_counter()
-        tracks = R.run_pipeline(img_dir, out_dir, cfg, log=msgs.append, device=dev)
+        R.run_pipeline(img_dir, out_dir, cfg, log=msgs.append, device=dev)
         wall = time.perf_counter() - t0
         launches, vec_launches = cl.launches, cl.vec_launches
     finally:
-        stages.flow_stage = flow_stage
-    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9   # the run's own
+        for n in names:
+            setattr(stages, n, originals[n])
+    peak_gb = (max(peak[0], torch.cuda.max_memory_allocated()) - resident) / 1e9
+    flows, tracks = kept["flow_stage"], kept["tracking_stage"]
 
     n_pairs = 2 * (frames - 1) + 2 * (frames - 2)
     blocks = math.ceil(n_pairs / cfg.flow.per_device)
@@ -334,7 +544,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
     for name in ("flow_f", "flow_b", "flow_f2", "flow_b2"):
         if not bool(torch.isfinite(flows[name]).all()):
             fail(f"slice: non-finite values in {name}")
-    epe = np.linalg.norm(flows["flow_f"][:GT_PAIRS].cpu().numpy() - gt, axis=-1)
+    epe = np.linalg.norm(flows["flow_f"][:GT_PAIRS].cpu().numpy() - gt["flow"], axis=-1)
     epe_median = float(np.median(epe))
     epe_mean_pairs = [float(e.mean()) for e in epe]
     if not epe_median <= 1.0:
@@ -346,16 +556,24 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
                  for m in msgs if "net+refine:" in m)
     timings = (out_dir / "timings.txt").read_text().strip().splitlines()
     stage_s = {ln.split()[0]: float(ln.split()[1].rstrip("s")) for ln in timings[1:]}
+    for stage in ("frame_upload", "flow", "trajectories", "depth", "motion_seg"):
+        if stage not in stage_s:
+            fail(f"slice: no '{stage}' stage in timings.txt")
     log(f"[slice] run_pipeline {wall:.2f}s: stages {json.dumps(stage_s)}; "
         f"{n_pairs} pairs in {blocks} blocks, net+refine {net_s:.3f}s = "
         f"{n_pairs / net_s:.2f} pairs/s; K1 launches {launches} ({vec_launches} with "
         f"16-byte copies); "
         f"stride-1 EPE median {epe_median:.4f} px, per-pair mean "
         f"{np.round(epe_mean_pairs, 4).tolist()}; {n_long} tracks of length >= 3 "
-        f"over {tracks.num_frames} frames; peak allocated {peak_gb:.2f} GB")
+        f"over {tracks.num_frames} frames; peak allocated {peak_gb:.2f} GB (each stage's "
+        f"own: {json.dumps({k: round(v, 3) for k, v in stage_gb.items()})})")
+    dump = check_selfcal(out_dir, msgs, flows, gt["focal"])
+    dump.update(check_depth(dev, cfg, kept["depth_stage"], img_dir, gt["inv_depth"]))
+    dump.update(check_motionseg(dev, cfg, out_dir, msgs, tracks, kept["depth_stage"],
+                                gt["dynamic"]))
     if profile_run:
         profile_pipeline(dev, img_dir, cfg)
-    return dict(launches=launches, img_dir=img_dir)
+    return dict(launches=launches, img_dir=img_dir, dump=dump)
 
 
 def phase_net(dev, img_dir: Path):
@@ -402,6 +620,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more pipeline run (device time by kernel)")
+    ap.add_argument("--dump", metavar="DIR", default=None,
+                    help="write the selfcal correspondences and draws, the slice's depth, "
+                         "4 frames and the seg check's chunks and card logits to "
+                         "DIR/slice_dump.npz, for scripts/compare_chip_dump_with_jax.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -433,6 +655,9 @@ def main(argv=None) -> int:
         shutil.rmtree(WORK)
     try:
         s = phase_slice(dev, FRAMES, args.profile)
+        if args.dump:
+            Path(args.dump).mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(Path(args.dump) / "slice_dump.npz", **s["dump"])
         kn = phase_net(dev, s["img_dir"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

@@ -163,3 +163,38 @@ def raft_state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> d
         sd[f"{mod}.{key}"] = torch.from_numpy(np.asarray(v).copy())
         sd.setdefault(f"{mod}.num_batches_tracked", torch.tensor(0))
     return sd
+
+
+def depth_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+    """flax DepthNet `params` + `batch_stats` -> the port's DepthNet state
+    dict: convs and batch norms, mapped as for RAFT (conv HWIO -> OIHW,
+    BatchNorm scale/bias from params, mean/var from batch_stats)."""
+    return raft_state_dict_from_jax(params, batch_stats)
+
+
+def motionseg_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+    """flax TrajOADepth `params` + `batch_stats` -> the port's state dict.
+
+    Dense (in, out) -> Linear (out, in); the attention projections' DenseGeneral
+    kernels (in, heads, head_dim) and (heads, head_dim, out) flatten to
+    (in, heads*head_dim) and (heads*head_dim, out) with heads outermost before
+    the transpose, their biases to one axis; LayerNorm and BatchNorm scale ->
+    weight; batch_stats mean/var -> running_mean/running_var."""
+    sd = {}
+    for name, v in _flatten(params):
+        mod, _, leaf = name.rpartition(".")
+        a = np.asarray(v)
+        if leaf == "kernel":
+            a = a.reshape(-1, a.shape[-1]) if mod.endswith(".out") else a.reshape(a.shape[0], -1)
+            sd[f"{mod}.weight"] = torch.from_numpy(a.T.copy())
+        elif leaf == "scale":
+            sd[f"{mod}.weight"] = torch.from_numpy(a.copy())
+        elif leaf == "bias":
+            sd[f"{mod}.bias"] = torch.from_numpy(a.reshape(-1).copy())
+        else:
+            raise KeyError(f"unexpected motion-seg parameter {name}")
+    for name, v in _flatten(batch_stats):
+        mod, _, leaf = name.rpartition(".")
+        key = {"mean": "running_mean", "var": "running_var"}[leaf]
+        sd[f"{mod}.{key}"] = torch.from_numpy(np.asarray(v).copy())
+    return sd

@@ -1,4 +1,5 @@
-"""Image directory I/O through Pillow (port of particlesfm_tpu/io/images.py)."""
+"""Image directory I/O and the 16-bit depth PNG contract, through Pillow
+(port of particlesfm_tpu/io/images.py)."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -25,3 +26,14 @@ def load_image_stack(image_dir) -> Tuple[np.ndarray, List[str]]:
     paths = list_images(image_dir)
     imgs = np.stack([load_image(p) for p in paths])
     return imgs, [p.name for p in paths]
+
+
+def write_depth_png16(path, depth01: np.ndarray) -> None:
+    """Write [0, 1] relative depth as a 16-bit PNG: x 65535, truncated."""
+    d = np.clip(depth01, 0.0, 1.0)
+    Image.fromarray((d * 65535.0).astype(np.uint16)).save(path)    # mode I;16
+
+
+def read_depth_png16(path) -> np.ndarray:
+    """Read a 16-bit depth PNG back to [0, 1] (/ 65535)."""
+    return np.asarray(Image.open(path), np.float32) / 65535.0

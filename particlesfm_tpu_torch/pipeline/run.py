@@ -4,13 +4,13 @@ Same three input modes (--image_dir+--output_dir, --workspace_dir with an
 images subfolder, --root_dir looping over sequences), same stage toggles and
 hyperparameter defaults, same config tree and `--set` overrides, same output
 layout — so either package's stages can pick up the other's outputs. The
-port runs the flow and trajectory stages; a config that asks for a stage it
-does not have yet raises NotImplementedError. Runs on CUDA unless
-`--device cpu` is given.
+port runs flow (with self-calibration), trajectories, depth and motion
+segmentation; a config that asks for a stage it does not have yet (SfM, the
+stride-2 composition fallback) raises NotImplementedError. Runs on CUDA
+unless `--device cpu` is given.
 
 Usage:
-    python -m particlesfm_tpu_torch.pipeline.run --image_dir IMG --output_dir OUT \\
-        --assume_static --skip_sfm --set flow.selfcal=false
+    python -m particlesfm_tpu_torch.pipeline.run --image_dir IMG --output_dir OUT --skip_sfm
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import shutil
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -91,7 +92,10 @@ def config_from_args(args) -> Config:
     return cfg
 
 
-DEFAULT_RAFT_CKPT = Path(__file__).resolve().parents[2] / "checkpoints" / "raft_synth.msgpack"
+_CKPT_DIR = Path(__file__).resolve().parents[2] / "checkpoints"
+DEFAULT_SEG_CKPT = _CKPT_DIR / "motionseg_synth3d.msgpack"
+DEFAULT_RAFT_CKPT = _CKPT_DIR / "raft_synth.msgpack"
+DEFAULT_DEPTH_CKPT = _CKPT_DIR / "depth_synth.msgpack"
 
 
 def _load_raft_apply(cfg: Config, device):
@@ -115,8 +119,86 @@ def _load_raft_apply(cfg: Config, device):
     )
 
 
+def _load_depth_apply(cfg: Config, device):
+    """Depth apply from a checkpoint (default: the repo's DepthNet):
+    `apply(stack) -> [T, H, W]` on `device`, normalized per frame to [0, 1]
+    and rounded to float16 and back, as the reference hands it to the seg
+    stage. `stack` is the uint8 frame stack [T, H, W, 3]; frames run in
+    blocks of 4."""
+    ckpt = cfg.depth.checkpoint
+    if ckpt is None and DEFAULT_DEPTH_CKPT.exists():
+        ckpt = str(DEFAULT_DEPTH_CKPT)
+    if ckpt is None:
+        return None
+    from ..io.checkpoint import depth_state_dict_from_jax, load_msgpack
+    from ..models.depth import DepthNet, normalize_depth
+
+    blob = load_msgpack(ckpt)
+    model = DepthNet(base=cfg.depth.base)
+    model.load_state_dict(
+        depth_state_dict_from_jax(blob["params"], blob.get("batch_stats", {})), strict=True)
+    model = model.to(device).eval()
+    block = 4
+
+    @torch.inference_mode()
+    def apply(stack):
+        stack = torch.as_tensor(stack).to(device)
+        out = []
+        for k in range(0, stack.shape[0], block):
+            x = stack[k:k + block].to(torch.float32).permute(0, 3, 1, 2).contiguous()
+            out.append(normalize_depth(model(x)).to(torch.float16).to(torch.float32))
+        return torch.cat(out)
+
+    return apply
+
+
+def _load_seg_apply(cfg: Config, device):
+    """Motion-seg apply from a checkpoint (default: the repo's TrajOADepth):
+    `apply(traj, depth, valid) -> logits [B, K]` on `device`.
+
+    A sidecar <ckpt>.json may carry {"input_hw": [h, w]} (the model's depth
+    resolution; depth maps are resized to it on the fly) and a calibrated
+    "threshold". traj arrives as u16 fixed point (`accepts_u16`)."""
+    ckpt = cfg.motionseg.checkpoint
+    if ckpt is None and DEFAULT_SEG_CKPT.exists():
+        ckpt = str(DEFAULT_SEG_CKPT)
+    if ckpt is None:
+        return None
+    from ..io.checkpoint import load_msgpack, motionseg_state_dict_from_jax
+    from ..models.depth import resize_bilinear
+    from ..models.motionseg import TrajOADepth
+
+    input_hw = tuple(cfg.motionseg.resolution)
+    sidecar_threshold = None
+    meta_path = Path(str(ckpt) + ".json")
+    if meta_path.exists():
+        meta = json.loads(meta_path.read_text())
+        input_hw = tuple(meta["input_hw"])
+        sidecar_threshold = meta.get("threshold")
+    blob = load_msgpack(ckpt)
+    model = TrajOADepth(input_hw=input_hw)
+    model.load_state_dict(
+        motionseg_state_dict_from_jax(blob["params"], blob.get("batch_stats", {})),
+        strict=True)
+    model = model.to(device).eval()
+
+    @torch.inference_mode()
+    def apply(traj, depth, valid):
+        traj = np.asarray(traj)
+        t = torch.from_numpy(traj.astype(np.float32)).to(device)
+        if traj.dtype == np.uint16:
+            t = t * (1.0 / 65535.0)
+        depth = resize_bilinear(torch.as_tensor(depth).to(device, torch.float32), input_hw)
+        return model(t, depth, torch.from_numpy(np.asarray(valid)).to(device))
+
+    apply.accepts_u16 = True
+    apply.threshold = sidecar_threshold
+    return apply
+
+
 def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
-    """Run the ported stages on one sequence; returns the TrackArrays."""
+    """Run the ported stages on one sequence; returns the TrackArrays
+    (labeled unless the scene is taken as static)."""
     stages.require_ported(cfg)
     dev = resolve_device(device)
     out = Path(output_dir)
@@ -140,17 +222,37 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
         return stack_box[0]
 
     with timer.stage("flow"):
-        flows = stages.flow_stage(images, out, cfg, raft_apply,
+        flows = stages.flow_stage(images, out, cfg, dev, raft_apply,
                                   device_stack=device_stack, log=log)
     with timer.stage("trajectories"):
         tracks = stages.tracking_stage(flows, H, W, out, cfg, device=dev, log=log)
 
-    # intermediate cleanup (upstream run_particlesfm.py:44-45 semantics)
+    # motion segmentation (skipped with --assume_static); a missing depth
+    # source degrades to assume-static, as in the reference
+    if not cfg.assume_static:
+        seg_apply = _load_seg_apply(cfg, dev)
+        if seg_apply is None:
+            log("[pipeline] no segmentation checkpoint; treating scene as static")
+        else:
+            try:
+                with timer.stage("depth"):
+                    depths = stages.depth_stage(images, out, cfg, _load_depth_apply(cfg, dev),
+                                                device_stack=device_stack, log=log)
+            except stages.MissingDepthError as e:
+                log(f"[pipeline] WARNING: {e}; degrading to assume-static")
+                depths = None
+            if depths is not None:
+                with timer.stage("motion_seg"):
+                    tracks = stages.motionseg_stage(tracks, depths, (H, W), out, cfg,
+                                                    seg_apply, log=log)
+
+    # intermediate cleanup (upstream run_particlesfm.py:44-45,66-70 semantics)
     if not cfg.keep_intermediate:
-        d = out / "optical_flows"
-        if d.is_dir():
-            shutil.rmtree(d)
-            log("[pipeline] removed intermediate optical_flows/")
+        for sub in ("optical_flows", "depth"):
+            d = out / sub
+            if d.is_dir():
+                shutil.rmtree(d)
+                log(f"[pipeline] removed intermediate {sub}/")
     log(timer.report())
     (out / "timings.txt").write_text(timer.report() + "\n")
     return tracks

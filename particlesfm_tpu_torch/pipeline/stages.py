@@ -1,13 +1,15 @@
 """Pipeline stages with the reference's on-disk contracts + skip-exists restart
-(port of particlesfm_tpu/pipeline/stages.py:100-354).
+(port of particlesfm_tpu/pipeline/stages.py:38-432).
 
-This slice ports the flow and trajectory stages: pair-indexed RAFT with fused
-photometric refinement, occlusion checks, and the slot-pool tracker with
-path-consistency LM. Stages the port does not have yet raise
-NotImplementedError (`require_ported`) instead of being skipped.
+The port runs the flow stage (pair-indexed RAFT with fused photometric
+refinement, then flow self-calibration -> selfcal.json), the trajectory
+stage (occlusion checks, slot-pool tracker with path-consistency LM), the
+depth stage and the motion-segmentation stage. Stages the port does not have
+yet raise NotImplementedError (`require_ported`) instead of being skipped.
 """
 from __future__ import annotations
 
+import json
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -15,7 +17,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..globalsfm.selfcal import estimate_focal_from_flows
 from ..io import flo as flo_io
+from ..io.images import read_depth_png16, write_depth_png16
+from ..motionseg import segment_tracks
 from ..ops.flow_ops import flow_check
 from ..tracks.engine import TrackerConfig, run_tracker
 from ..tracks.store import TrackArrays, assemble_tracks
@@ -26,13 +31,9 @@ def require_ported(cfg: Config) -> None:
     """Raise NotImplementedError naming the first stage `cfg` asks for that
     the port does not have yet."""
     missing = []
-    if cfg.flow.selfcal:
-        missing.append("flow self-calibration (set flow.selfcal=false)")
     if cfg.flow.stride2_compose_disagree_px > 0:
         missing.append("stride-2 composition fallback "
                        "(flow.stride2_compose_disagree_px > 0)")
-    if not cfg.assume_static:
-        missing.append("depth + motion segmentation (pass --assume_static)")
     if not cfg.skip_sfm:
         missing.append("global SfM (pass --skip_sfm)")
     if missing:
@@ -40,8 +41,66 @@ def require_ported(cfg: Config) -> None:
             "particlesfm_tpu_torch does not port these stages yet: " + "; ".join(missing))
 
 
+class MissingDepthError(RuntimeError):
+    """No depth net and no precomputed depth PNGs: the reference's pipeline
+    then treats the scene as static."""
+
+
 def _flow_dir_complete(d: Path, expected: int) -> bool:
     return d.is_dir() and len(list(d.glob("*.flo"))) >= expected
+
+
+def _write_flow_selfcal(result, height, width, out_dir: Path, cfg, log):
+    """Self-calibrate the shared focal from the flow stack -> selfcal.json.
+
+    Runs at the flow stage because flow-level correspondences measure focal
+    better than tracker output; the SfM stage reads the JSON as its focal
+    prior (`read_flow_selfcal`)."""
+    p = Path(out_dir) / "selfcal.json"
+    if not cfg.flow.selfcal or "flow_f" not in result:
+        return
+    if cfg.skip_exists and p.exists():
+        return
+    t0 = time.perf_counter()
+    info = estimate_focal_from_flows(result, height, width, seed=0)
+    p.write_text(json.dumps(info, indent=2))
+    log(f"[flow] self-calibrated focal {info['focal']:.1f} "
+        f"(conf {info['confidence']:.2f}, dip {info['dip']:.2f}, "
+        f"n {info['num_pairs']})")
+    log(f"[flow] selfcal: {time.perf_counter() - t0:.3f}s")
+
+
+def read_flow_selfcal(out_dir: Path, cfg) -> Optional[tuple]:
+    """Focal from the flow stage's selfcal.json, if present and trustworthy.
+
+    Returns (focal, bound_frac) -- bound_frac is the BA focal trust-region
+    half-width the estimate's quality earns -- or None when untrustworthy."""
+    p = Path(out_dir) / "selfcal.json"
+    if not getattr(cfg.sfm, "selfcal_focal", True) or not p.exists():
+        return None
+    info = json.loads(p.read_text())
+    # AND of all quality signals: on degenerate scenes either signal alone
+    # admits a confidently wrong estimate
+    ok = (
+        info.get("interior", True)
+        and info.get("num_pairs", 0) >= cfg.sfm.selfcal_min_pairs
+        and info.get("dip", 1.0) <= cfg.sfm.selfcal_max_dip
+        and info.get("confidence", 0.0) >= cfg.sfm.selfcal_min_conf
+    )
+    if ok:
+        return float(info["focal"]), 0.15
+    # marginal tier: a shallow-dip estimate with decent per-pair agreement is
+    # still a better prior than the 1.2*max(h,w) heuristic, with a wider BA
+    # trust region so a bad marginal estimate can be escaped
+    marginal = (
+        info.get("interior", True)
+        and info.get("num_pairs", 0) >= cfg.sfm.selfcal_min_pairs
+        and info.get("dip", 1.0) <= 0.8
+        and info.get("confidence", 0.0) >= 0.5
+    )
+    if marginal:
+        return float(info["focal"]), 0.30
+    return None
 
 
 def upload_frame_stack(images: np.ndarray, device) -> torch.Tensor:
@@ -55,14 +114,16 @@ def flow_stage(
     images: np.ndarray,            # [T, H, W, 3] float32
     out_dir: Path,
     cfg: Config,
+    device,                        # the run's device: reused .flo stacks go there
     raft_apply: Optional[Callable] = None,   # (stack, ia, ib) -> flows [N, H, W, 2]
     device_stack=None,             # uploaded uint8 stack, or a thunk returning it
     log=print,
 ):
-    """Pairwise forward/backward flow at stride 1 (and 2 unless disabled).
+    """Pairwise forward/backward flow at stride 1 (and 2 unless disabled),
+    then flow self-calibration -> selfcal.json.
 
-    Returns {name: [npairs, H, W, 2]} for flow_f, flow_b (+ flow_f2, flow_b2);
-    with --keep_intermediate also writes them as .flo directories (the
+    Returns {name: [npairs, H, W, 2] tensor on `device`} for flow_f, flow_b
+    (+ flow_f2, flow_b2); with --keep_intermediate also writes them as .flo directories (the
     reference's RAFT-stage contract). Existing complete .flo directories are
     reused under --skip_exists.
     """
@@ -87,10 +148,11 @@ def flow_stage(
                 raise RuntimeError(
                     f"flow stage: {d} holds flow of shape {stack.shape[1:3]}, "
                     f"expected {(H, W)} for {npairs} pairs — stale flow dir?")
-            result[name] = stack
+            result[name] = torch.from_numpy(stack).to(device)
             continue
         todo.append((name, stride, d, npairs))
     if not todo:
+        _write_flow_selfcal(result, images.shape[1], images.shape[2], out_dir, cfg, log)
         return result
     if raft_apply is None:
         raise RuntimeError(
@@ -123,6 +185,7 @@ def flow_stage(
         log(f"[flow] photometric refinement fused into inference "
             f"(schedule {cfg.flow.refine_schedule})")
 
+    _write_flow_selfcal(result, images.shape[1], images.shape[2], out_dir, cfg, log)
     # .flo contract writes only when the files outlive the run; f16 on the
     # way to the host, as the reference writes them (stages.py:278-299)
     for name, stride, d, npairs in todo:
@@ -186,3 +249,78 @@ def tracking_stage(
     log(f"[tracks] {tracks.num_tracks} tracks over {tracks.num_frames} frames "
         f"(overflow={int(out.overflow)})")
     return tracks
+
+
+def depth_stage(
+    images: np.ndarray,
+    out_dir: Path,
+    cfg: Config,
+    depth_apply: Optional[Callable] = None,   # (uint8 stack [T,H,W,3]) -> [T, H, W]
+    device_stack=None,             # uploaded uint8 stack, or a thunk returning it
+    log=print,
+):
+    """Per-frame relative depth in [0, 1] (16-bit PNG contract).
+
+    Returns the depth stack [T, H, W] (a tensor on the apply's device, or an
+    array read back from existing PNGs). Existing PNGs are reused under
+    --skip_exists, and whenever no depth net is given."""
+    d = Path(out_dir) / "depth"
+    T = images.shape[0]
+    existing = sorted(d.glob("*.png")) if d.is_dir() else []
+    if len(existing) >= T and (cfg.skip_exists or depth_apply is None):
+        log(f"[depth] reusing {T} existing depth PNGs")
+        return np.stack([read_depth_png16(p) for p in existing[:T]])
+    if depth_apply is None:
+        raise MissingDepthError(
+            f"depth stage: no precomputed depth at {d} and no depth weights provided")
+    if callable(device_stack):
+        device_stack = device_stack()
+    deps = depth_apply(upload_frame_stack(images, "cpu") if device_stack is None
+                       else device_stack)
+    # the PNGs are written only when they outlive the run; the seg stage
+    # reads the in-memory stack either way
+    if cfg.keep_intermediate:
+        d.mkdir(parents=True, exist_ok=True)
+        host = deps.cpu().numpy()
+        for i in range(T):
+            write_depth_png16(d / f"{i:06d}.png", host[i])
+    log(f"[depth] computed {T} frames (batched)")
+    return deps
+
+
+def motionseg_stage(
+    tracks: TrackArrays,
+    depths,
+    image_hw,
+    out_dir: Path,
+    cfg: Config,
+    seg_apply: Optional[Callable] = None,
+    log=print,
+) -> TrackArrays:
+    """Label tracks dynamic/static; writes trajectories_labeled/tracks.npz."""
+    labeled_path = Path(out_dir) / "trajectories_labeled" / "tracks.npz"
+    if cfg.skip_exists and labeled_path.exists():
+        log("[motionseg] reusing existing labeled tracks")
+        return TrackArrays.load(labeled_path)
+    if seg_apply is None:
+        raise RuntimeError("motion-seg stage: no segmentation weights provided")
+
+    # decision threshold: the checkpoint's calibrated value (sidecar) unless
+    # the config was set away from the reference default 0.5
+    thr = cfg.motionseg.threshold
+    side = getattr(seg_apply, "threshold", None)
+    if side is not None and abs(thr - 0.5) < 1e-9:
+        thr = float(side)
+        log(f"[motionseg] using checkpoint-calibrated threshold {thr}")
+    labeled = segment_tracks(
+        seg_apply, tracks, depths, image_hw,
+        window_size=cfg.motionseg.window_size,
+        traj_max_num=cfg.motionseg.traj_max_num,
+        threshold=thr,
+        log=log,
+    )
+    labeled_path.parent.mkdir(parents=True, exist_ok=True)
+    labeled.save(labeled_path)
+    frac = float(labeled.labels[labeled.mask].mean()) if labeled.mask.any() else 0.0
+    log(f"[motionseg] dynamic fraction: {frac:.3f}")
+    return labeled

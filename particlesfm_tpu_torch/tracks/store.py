@@ -1,5 +1,5 @@
 """Track tensor store: padded trajectory arrays + file I/O
-(port of particlesfm_tpu/tracks/store.py:24-131).
+(port of particlesfm_tpu/tracks/store.py:24-157).
 
 Trajectories live as padded arrays `xy [N, T, 2]` + `mask [N, T]` keyed by
 absolute frame index; `trajectories/tracks.npz` has the same layout in both
@@ -8,7 +8,7 @@ packages.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,3 +75,30 @@ def assemble_tracks(out: TrackerOutput, min_len: int = 3) -> TrackArrays:
 
     keep = mask.sum(axis=1) >= min_len
     return TrackArrays(xy=xy[keep], mask=mask[keep])
+
+
+def sample_inside_window(
+    tracks: TrackArrays,
+    frame_ids: Sequence[int],
+    min_length: int = 3,
+    max_num_tracks: int = 100_000,
+    rng: Optional[np.random.Generator] = None,
+):
+    """Padded window view: trajectories with >= min_length observations inside
+    the window, randomly capped at max_num_tracks with numpy's generator, as
+    the reference samples them.
+
+    Returns (locations [K, L, 2], present [K, L] bool, traj_indices [K]).
+    """
+    frame_ids = np.asarray(frame_ids, np.int64)
+    sub_mask = tracks.mask[:, frame_ids]  # [N, L]
+    counts = sub_mask.sum(axis=1)
+    cand = np.nonzero(counts >= min_length)[0]
+    if len(cand) > max_num_tracks:
+        rng = rng or np.random.default_rng(0)
+        cand = rng.permutation(cand)[:max_num_tracks]
+        cand.sort()
+    locations = tracks.xy[cand][:, frame_ids]
+    present = sub_mask[cand]
+    locations = locations * present[..., None]
+    return locations.astype(np.float32), present, cand

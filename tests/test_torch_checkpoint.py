@@ -1,8 +1,9 @@
-"""Port parity: the msgpack checkpoint reader and the RAFT weight carry-over.
+"""Port parity: the msgpack checkpoint reader and the weight carry-over.
 
 The port's pure-Python decoder must return exactly what
 `flax.serialization.msgpack_restore` returns for every checkpoint in the repo,
-and `raft_state_dict_from_jax` must load strictly into the port's RAFT.
+and the RAFT, DepthNet and TrajOADepth state dicts must load strictly into
+the port's models, every flax leaf landing in exactly one tensor.
 """
 from pathlib import Path
 
@@ -12,8 +13,12 @@ import pytest
 import torch
 from flax.serialization import msgpack_restore, msgpack_serialize
 
-from particlesfm_tpu_torch.io.checkpoint import (msgpack_restore as port_restore,
+from particlesfm_tpu_torch.io.checkpoint import (depth_state_dict_from_jax,
+                                                 motionseg_state_dict_from_jax,
+                                                 msgpack_restore as port_restore,
                                                  raft_state_dict_from_jax)
+from particlesfm_tpu_torch.models.depth import DepthNet
+from particlesfm_tpu_torch.models.motionseg import TrajOADepth
 from particlesfm_tpu_torch.models.raft import RAFT, compact_raft
 
 CKPTS = sorted((Path(__file__).resolve().parents[1] / "checkpoints").glob("*.msgpack"))
@@ -106,3 +111,59 @@ def test_raft_batch_norm_state_dict_loads_strictly():
     model.load_state_dict(raft_state_dict_from_jax(params, stats), strict=True)
     for name, t in model.state_dict().items():
         assert torch.equal(t, sd[name]), name
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+@pytest.mark.parametrize("name,convert,model", [
+    ("depth_synth.msgpack", depth_state_dict_from_jax, DepthNet),
+    ("motionseg_synth3d.msgpack", motionseg_state_dict_from_jax, lambda: TrajOADepth((30, 53))),
+])
+def test_every_leaf_maps_to_one_tensor(name, convert, model):
+    """Each flax leaf of params and batch_stats lands in exactly one port
+    tensor of the same element count and values; nothing is left over on
+    either side (the strict load checks names and shapes)."""
+    blob = port_restore(next(p for p in CKPTS if p.name == name).read_bytes())
+    leaves = dict(_leaves({"params": blob["params"], "batch_stats": blob["batch_stats"]}))
+    sd = convert(blob["params"], blob["batch_stats"])
+    net = model()
+    net.load_state_dict(sd, strict=True)
+    ported = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    assert len(ported) == len(leaves)
+    used = set()
+    for key, t in ported.items():
+        *mod, leaf = key.split(".")
+        leaf = {"weight": "kernel" if t.dim() >= 2 else "scale",
+                "running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+        col = "batch_stats" if leaf in ("mean", "var") else "params"
+        flax_key = "/".join([col, *mod, leaf])
+        a = leaves[flax_key]
+        assert a.size == t.numel(), key
+        assert np.array_equal(np.sort(a.ravel()), np.sort(t.numpy().ravel())), key
+        used.add(flax_key)
+    assert used == set(leaves)
+    for key, t in net.state_dict().items():
+        if key in sd:
+            assert torch.equal(t, sd[key]), key
+
+
+def test_attention_kernels_put_heads_outermost():
+    blob = port_restore(next(p for p in CKPTS if p.name == "motionseg_synth3d.msgpack")
+                        .read_bytes())
+    sd = motionseg_state_dict_from_jax(blob["params"], blob["batch_stats"])
+    attn = blob["params"]["joint_encoder"]["dec0"]["cross_attn"]
+    q, out = attn["query"]["kernel"], attn["out"]["kernel"]          # (16,4,4), (4,4,16)
+    wq = sd["joint_encoder.dec0.cross_attn.query.weight"].numpy()    # (16 = h*4+d, 16 in)
+    wo = sd["joint_encoder.dec0.cross_attn.out.weight"].numpy()      # (16 out, 16 = h*4+d)
+    for h in range(4):
+        for d in range(4):
+            np.testing.assert_array_equal(wq[h * 4 + d], q[:, h, d])
+            np.testing.assert_array_equal(wo[:, h * 4 + d], out[h, d])
+    np.testing.assert_array_equal(sd["joint_encoder.dec0.cross_attn.query.bias"].numpy(),
+                                  attn["query"]["bias"].reshape(-1))

@@ -1,4 +1,6 @@
-"""CUDA kernel tests of the port: each kernel against its plain version.
+"""CUDA tests of the port: each kernel against its plain version, and the
+torch-op stages (self-calibration, depth, motion seg) on the card against
+the same code on the CPU.
 
 Marked `cuda`; they skip without a CUDA device. This file imports torch and
 the port only (no JAX), so it runs on a GPU machine without the reference:
@@ -18,7 +20,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernel K1 has no CPU mode)")
+        pytest.skip("needs a CUDA device (kernel K1 has no CPU mode; the stages "
+                    "are held card against CPU)")
     return torch.device("cuda")
 
 
@@ -137,3 +140,51 @@ def test_corr_lookup_rejects_unsupported_radius(cuda, radius):
     with pytest.raises(ValueError):
         cl.lookup_corr(pyr, torch.zeros(1, 4, 2, device=cuda), radius)
     assert cl.launches == before
+
+
+def test_selfcal_card_matches_cpu(cuda):
+    """Same flows, same injected RANSAC draws: the focal within 1e-3."""
+    from flow_scenes import make_conditioned_flow_scene
+
+    from particlesfm_tpu_torch.globalsfm import selfcal
+
+    sc = make_conditioned_flow_scene(num_views=12, height=192, width=256, focal=240.0)
+    P = selfcal.num_selfcal_pairs(sc["flows"]["flow_f"].shape[0])
+    g = torch.Generator().manual_seed(0)
+    u_f, u_h = torch.rand(P, 64, 8, generator=g), torch.rand(P, 32, 4, generator=g)
+    infos = [selfcal.estimate_focal_from_flows(
+        {k: torch.from_numpy(sc["flows"][k]).to(dev) for k in ("flow_f", "flow_b")},
+        192, 256, u_f=u_f, u_h=u_h) for dev in (cuda, torch.device("cpu"))]
+    assert abs(infos[0]["focal"] / infos[1]["focal"] - 1) <= 1e-3
+    assert infos[0]["interior"] == infos[1]["interior"]
+    assert abs(infos[0]["focal"] / 240.0 - 1) < 0.06
+
+
+def test_depthnet_card_matches_cpu(cuda):
+    from particlesfm_tpu_torch.pipeline.run import _load_depth_apply
+    from particlesfm_tpu_torch.utils.config import Config
+
+    stack = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (5, 70, 100, 3)).astype(np.uint8))
+    d_gpu = _load_depth_apply(Config(), cuda)(stack)
+    d_cpu = _load_depth_apply(Config(), torch.device("cpu"))(stack)
+    assert d_gpu.is_cuda and d_gpu.shape == (5, 70, 100)
+    assert float((d_gpu.cpu() - d_cpu).abs().max()) <= 1e-3
+
+
+def test_motionseg_card_matches_cpu(cuda):
+    """Seg apply (u16 tracks, depth resized to the checkpoint's 30x53) with
+    padded track slots: logits within 1e-3, all finite."""
+    from particlesfm_tpu_torch.pipeline.run import _load_seg_apply
+    from particlesfm_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(0)
+    B, N, L = 2, 300, 10
+    traj = rng.integers(0, 65536, (B, N, L, 2)).astype(np.uint16)
+    valid = rng.random((B, N, L)) < 0.8
+    traj[:, -40:], valid[:, -40:] = 0, False
+    depth = torch.from_numpy(rng.random((B, L, 60, 90)).astype(np.float32))
+    out = [_load_seg_apply(Config(), dev)(traj, depth.to(dev), valid).cpu()
+           for dev in (cuda, torch.device("cpu"))]
+    assert bool(torch.isfinite(out[0]).all())
+    assert float((out[0] - out[1]).abs().max()) <= 1e-3

@@ -57,8 +57,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,stage", [
-    ((), "flow self-calibration"),
-    (("--set", "flow.selfcal=false"), "depth \\+ motion segmentation"),
+    ((), "global SfM"),
+    (("--set", "flow.selfcal=false"), "global SfM"),
     (("--assume_static", "--set", "flow.selfcal=false"), "global SfM"),
     (("--assume_static", "--skip_sfm", "--set", "flow.selfcal=false",
       "--set", "flow.stride2_compose_disagree_px=4.0"), "stride-2 composition"),
@@ -73,3 +73,32 @@ def test_unported_stages_raise(tmp_path, extra, stage):
 def test_reduced_resolution_flow_raises():
     with pytest.raises(NotImplementedError, match="infer_scale"):
         load_flow_apply_pairs(DEFAULT_RAFT_CKPT, scale=0.5, device="cpu")
+
+
+def test_skip_sfm_runs_every_ported_stage_on_cpu(tmp_path):
+    """The default command with --skip_sfm: selfcal.json, the labeled tracks
+    and the four stage timers; depth/ and optical_flows/ are removed."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from particlesfm_tpu_torch.synth import random_scene
+
+    sc = random_scene(np.random.default_rng(0), num_views=5, height=64, width=96,
+                      motion_scale=0.15, rot_scale=0.2, num_static_obj=3, num_dynamic=1)
+    (tmp_path / "img").mkdir()
+    for i in range(5):
+        Image.fromarray(sc.render(i)).save(tmp_path / "img" / f"{i:06d}.png")
+    out = tmp_path / "out"
+    assert run.main(["--image_dir", str(tmp_path / "img"), "--output_dir", str(out),
+                     "--skip_sfm", "--skip_path_consistency", "--sample_ratio", "4",
+                     "--set", "track.capacity=2048", "--device", "cpu"]) == 0
+    assert set(json.loads((out / "selfcal.json").read_text())) == {
+        "focal", "confidence", "num_pairs", "dip", "interior"}
+    lab = np.load(out / "trajectories_labeled" / "tracks.npz")
+    assert lab["labels"].shape == lab["mask"].shape and lab["mask"].sum() > 0
+    timings = (out / "timings.txt").read_text()
+    for stage in ("flow", "trajectories", "depth", "motion_seg"):
+        assert stage in timings
+    assert not (out / "depth").exists() and not (out / "optical_flows").exists()
