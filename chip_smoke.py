@@ -4,6 +4,7 @@ against its plain version, drives the port's main path and checks its output.
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --profile  # also device time by kernel of one more run
     python3 chip_smoke.py --dump DIR  # also the checks' inputs, for the JAX compare
+                                      # (and a labeled-track subset + selfcal.json)
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device  — CUDA required; card name and power limit from nvidia-smi.
@@ -15,9 +16,9 @@ Phases (each prints its lines; any failure exits non-zero):
                coordinates: max error, exact zeros off the map, times
                (kernel, plain, F.grid_sample) and the bound.
   4. slice   — renders the acceptance set's seq_03_dyn (seed 0, 1024x436,
-               48 frames) and runs `run_pipeline --skip_sfm` on the card: K1
-               launch count, finite flows, stride-1 EPE against the
-               renderer's ground truth, tracks; then
+               48 frames) and runs the user's default `run_pipeline` (global
+               SfM included) on the card: K1 launch count, finite flows,
+               stride-1 EPE against the renderer's ground truth, tracks; then
                [selfcal]   selfcal.json interior and within 6% of the
                            renderer's focal; the card's estimate from the
                            run's flows against the CPU's, same draws;
@@ -59,6 +60,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 SEQ = dict(seed=0, idx=3, h=436, w=1024)   # seq_03_dyn, make_acceptance_set.py:50-83
 FRAMES = 48                    # the sequence length of the acceptance set
 GT_PAIRS = 8                   # stride-1 pairs scored against ground truth
+SFM_DUMP_TRACKS = 30_000       # --dump: the labeled-track subset the JAX compare reruns
 
 
 def log(msg: str) -> None:
@@ -107,7 +109,8 @@ def _render_frame(job):
 
 def render_sequence(frames: int, img_dir: Path) -> dict:
     """Frames as PPM files; GT flow and inverse depth of the first GT_PAIRS
-    frames, moving-object masks of all, and the scene's focal."""
+    frames, moving-object masks of all, the scene's focal and its 3x4
+    world-to-camera poses."""
     img_dir.mkdir(parents=True, exist_ok=True)
     jobs = [(i, frames, SEQ, str(img_dir), i < GT_PAIRS) for i in range(frames)]
     dyn, extra = {}, {}
@@ -116,10 +119,12 @@ def render_sequence(frames: int, img_dir: Path) -> dict:
             dyn[i] = d
             if e is not None:
                 extra[i] = e
+    sc = _scene(frames, **SEQ)
     return dict(flow=np.stack([extra[i][0] for i in range(GT_PAIRS)]),
                 inv_depth=np.stack([extra[i][1] for i in range(GT_PAIRS)]),
                 dynamic=np.stack([dyn[i] for i in range(frames)]),
-                focal=float(_scene(frames, **SEQ).K[0]))
+                focal=float(sc.K[0]),
+                w2c=np.stack([sc.world_to_cam(i) for i in range(frames)]))
 
 
 def ptxas_lines(log_text: str, entry: str):
@@ -483,7 +488,268 @@ def check_motionseg(dev, cfg, out_dir: Path, msgs, tracks, depths, gt_dynamic) -
     return dump
 
 
-def phase_slice(dev, frames: int, profile_run: bool = False):
+class SolverLog:
+    """Wraps the mapper's solvers for the timed run: the seconds of every
+    call (a device synchronize on each side) and the first call's arguments
+    and result, kept on the card for the card-vs-CPU checks."""
+    TIMED = ("build_pair_tensors", "upload_tracks_u16", "pair_draws", "threefry_uniform",
+             "estimate_relative_poses", "full_epipolar_votes", "classify_two_view",
+             "average_rotations", "build_observations", "build_obs_device",
+             "refine_pairwise_translations", "triplet_baseline_constraints",
+             "estimate_positions_lud", "triangulate_tracks", "filter_observations",
+             "bundle_adjust", "estimate_pose_pnp")
+
+    def __init__(self):
+        from particlesfm_tpu_torch.pipeline import stages
+        from particlesfm_tpu_torch.sfm import mapper
+
+        self.first, self.secs, self.count, self._orig = {}, {}, {}, []
+        for name in self.TIMED:
+            self._wrap(mapper, name)
+        for name in ("write_models", "write_converted_outputs"):
+            self._wrap(stages, name)
+
+    def _wrap(self, mod, name):
+        import torch
+
+        fn = getattr(mod, name)
+        self._orig.append((mod, name, fn))
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.secs[name] = self.secs.get(name, 0.0) + time.perf_counter() - t0
+            self.count[name] = self.count.get(name, 0) + 1
+            self.first.setdefault(name, (a, kw, out))
+            return out
+        setattr(mod, name, timed)
+
+    def restore(self):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def _to_cpu(x):
+    """Tensors (in tuples, named tuples, lists and dicts) moved to the CPU."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def _rot_angles(Ra, Rb) -> np.ndarray:
+    """Angles (rad) between rotation batches, in float64 from the
+    antisymmetric part (arccos of the trace cannot resolve 1e-4 in float32)."""
+    M = np.asarray(Ra, np.float64) @ np.swapaxes(np.asarray(Rb, np.float64), -1, -2)
+    v = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    return np.arctan2(0.5 * np.linalg.norm(v, axis=-1), 0.5 * (np.trace(M, axis1=1, axis2=2) - 1))
+
+
+def check_sfm_solvers(cfg, solvers: SolverLog) -> None:
+    """The first two-view, rotation-averaging, LUD and BA call of the run,
+    repeated on the card and on the CPU from the run's own inputs: the same
+    verified pairs and inlier counts equal on >= 99% of pairs; rotations
+    within 1e-4 rad; positions within 1e-4 of their spread after Sim3; BA's
+    final cost within 1e-4 relative. The card's repeat must equal the run's
+    own result exactly (no atomic sum on these paths)."""
+    import torch
+
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.sfm import mapper
+
+    def both(name):
+        a, kw, out = solvers.first[name]
+        fn = getattr(mapper, name)
+        t0 = time.perf_counter()
+        card = fn(*a, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fn(*_to_cpu(a), **_to_cpu(kw))
+        return a, out, card, cpu, t_card, time.perf_counter() - t0
+
+    a, out, card, cpu, tc, tp = both("estimate_relative_poses")
+    pmask = a[2].cpu().numpy()
+    n_c, n_p = card.num_inliers.cpu().numpy(), cpu.num_inliers.numpy()
+    v_c, v_p = (mapper._verified(n, pmask, cfg.sfm) for n in (n_c, n_p))
+    eq = float((n_c == n_p).mean())
+    rerun_same = bool(torch.equal(card.inliers, out.inliers))
+    log(f"[sfm] card vs CPU, two-view RANSAC on the run's {len(n_c)} pairs (the reference's "
+        f"draws): verified {int(v_c.sum())} / {int(v_p.sum())}, same set {bool((v_c == v_p).all())}, "
+        f"inlier counts equal on {100 * eq:.2f}% of pairs (max |diff| "
+        f"{int(np.abs(n_c.astype(int) - n_p).max())}); card repeat equals the run: "
+        f"{rerun_same}; {tc:.3f}s / {tp:.3f}s")
+    if not (v_c == v_p).all() or eq < 0.99:
+        fail("sfm: two-view card vs CPU: verified sets differ or < 99% equal inlier counts")
+    if not rerun_same:
+        fail("sfm: the card's two-view repeat differs from the run's")
+
+    a, out, card, cpu, tc, tp = both("average_rotations")
+    ang = _rot_angles(card[0].cpu().numpy(), cpu[0].numpy())
+    rerun_same = bool(torch.equal(card[0], out[0]))
+    log(f"[sfm] card vs CPU, rotation averaging on the run's {a[0]} views x "
+        f"{a[1].shape[0]} pairs: max angle {ang.max():.3e} rad, iterations "
+        f"{card[1]['l1_iters']}+{card[1]['irls_iters']} / {cpu[1]['l1_iters']}+"
+        f"{cpu[1]['irls_iters']}; card repeat equals the run: {rerun_same}; "
+        f"{tc:.3f}s / {tp:.3f}s")
+    if not ang.max() <= 1e-4:
+        fail(f"sfm: rotation averaging card vs CPU differ by {ang.max()} rad > 1e-4")
+    if not rerun_same:
+        fail("sfm: the card's rotation-averaging repeat differs from the run's")
+
+    a, out, card, cpu, tc, tp = both("estimate_positions_lud")
+    pc, pp = card[0].cpu().numpy(), cpu[0].numpy()
+    spread = float(np.linalg.norm(pp - pp.mean(0), axis=1).mean())
+    ate = float(ate_rmse(pc, pp))
+    rerun_same = bool(torch.equal(card[0], out[0]))
+    log(f"[sfm] card vs CPU, LUD on the run's view graph ({a[0]} views, {a[1].shape[0]} "
+        f"edge rows): Sim3 ATE "
+        f"{ate:.3e} = {ate / max(spread, 1e-30):.3e} of the spread, ADMM iterations "
+        f"{card[2]['iters']} / {cpu[2]['iters']}; card repeat equals the run: {rerun_same}; "
+        f"{tc:.3f}s / {tp:.3f}s")
+    if not ate <= 1e-4 * spread:
+        fail(f"sfm: LUD card vs CPU Sim3 ATE {ate} > 1e-4 of the spread {spread}")
+    if not rerun_same:
+        fail("sfm: the card's LUD repeat differs from the run's")
+
+    a, out, card, cpu, tc, tp = both("bundle_adjust")
+    c_c, c_p = float(card.cost), float(cpu.cost)
+    rel = abs(c_c - c_p) / max(abs(c_p), 1e-30)
+    rerun_same = bool(torch.equal(card.q, out.q) and torch.equal(card.X, out.X))
+    log(f"[sfm] card vs CPU, the run's first bundle_adjust ({a[0].shape[0]} views, "
+        f"{a[3].shape[0]} tracks): final cost {c_c:.6e} / {c_p:.6e} ({rel:.2e} relative), "
+        f"LM iterations {card.iters} / {cpu.iters}; card repeat equals the run: "
+        f"{rerun_same}; {tc:.3f}s / {tp:.3f}s")
+    if not rel <= 1e-4:
+        fail(f"sfm: BA card vs CPU final cost differs by {rel:.2e} relative > 1e-4")
+    if not rerun_same:
+        fail("sfm: the card's BA repeat differs from the run's")
+
+
+def check_sfm(dev, cfg, out_dir: Path, msgs, rec, gt, solvers: SolverLog, sfm_s: float,
+              sfm_gb: float, dump: bool = False) -> dict:
+    """The SfM stage's products: the model bins read back through the port's
+    reader, the converted poses against the renderer's (>= 44 of 48 frames,
+    Sim3 ATE <= 0.02), the native library, the solvers card vs CPU, and the
+    stage repeated on the card from the run's labeled tracks under
+    torch.profiler (the same registered frames, poses within 1e-6). With
+    `dump`, the stage also runs on a seeded subset of SFM_DUMP_TRACKS labeled
+    tracks, which is saved beside the dump with selfcal.json: the full set
+    (~150 MB) exceeds what a run may bring back, and a full-size JAX run is
+    not for a CPU host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from particlesfm_tpu_torch import native
+    from particlesfm_tpu_torch.eval.pose_eval import evaluate_sequence, load_pose_dir
+    from particlesfm_tpu_torch.io import colmap_model as cm
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    if not native.available():
+        fail("sfm: the native host library (native/libparticlesfm_host.so) did not load")
+    model = out_dir / "sfm" / "model"
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        if not (model / name).exists():
+            fail(f"sfm: no sfm/model/{name}")
+    cams, images, points = cm.read_model_binary(model)
+    est = load_pose_dir(out_dir / "colmap_outputs_converted" / "poses")
+    if not (out_dir / "sfm" / "stats.txt").exists():
+        fail("sfm: no sfm/stats.txt")
+    T = len(gt["w2c"])
+    n_reg = rec.num_registered
+    if len(images) != n_reg or len(est) != n_reg:
+        fail(f"sfm: {len(images)} images in images.bin and {len(est)} converted poses for "
+             f"{n_reg} registered frames")
+    res = evaluate_sequence(est, {f"{i:06d}": gt["w2c"][i] for i in range(T)}, "seq_03_dyn")
+    focal = float(rec.params[0])
+    rounds = sum(m.startswith("[mapper] phase") for m in msgs)
+    starts = 2 if any("multi-start with loop-consistency gate" in m for m in msgs) else 1
+    retries = [m.split("] ", 1)[1] for m in msgs
+               if "retrying with glomap" in m or "trying the complement" in m]
+    n_models = sum(m.startswith("[manager] model") for m in msgs)
+    lm = [int(m.split("lm-iters=")[1]) for m in msgs if "lm-iters=" in m]
+    layers = {k: (round(v, 4), solvers.count[k]) for k, v in sorted(
+        solvers.secs.items(), key=lambda kv: -kv[1])}
+    replay = solvers.secs.get("pair_draws", 0.0) + solvers.secs.get("threefry_uniform", 0.0)
+    log(f"[sfm] stage {sfm_s:.3f}s, peak {sfm_gb:.3f} GB above resident; {n_reg}/{T} frames "
+        f"registered, {len(points)} points, {n_models} model(s); Sim3 ATE {res.ate:.5f}, "
+        f"RPE-t {res.rpe_trans:.5f}, RPE-r {res.rpe_rot_deg:.4f} deg against the renderer; "
+        f"focal {focal:.2f} px (renderer {gt['focal']:.2f} px, "
+        f"{100 * (focal / gt['focal'] - 1):+.2f}%); {rounds} BA rounds (LM iterations "
+        f"{lm}); start(s) {starts}, retries {retries or 'none'}; native host library loaded")
+    for m in msgs:
+        if m.startswith(("[sfm]", "[mapper]", "[manager]")):
+            log(f"[sfm-log] {m}")
+    log(f"[sfm] seconds (calls) by solver, device-synchronized: {json.dumps(layers)}; "
+        f"threefry draw replay on the host {replay:.4f}s")
+    if n_reg < 44:
+        fail(f"sfm: {n_reg} of {T} frames registered (< 44)")
+    if res.failed or not res.ate <= 0.02:
+        fail(f"sfm: Sim3 ATE {res.ate} against the renderer's poses > 0.02")
+    check_sfm_solvers(cfg, solvers)
+
+    # run to run: the stage again from the run's own labeled tracks and selfcal.json
+    rerun = WORK / "sfm_rerun"
+    rerun.mkdir(parents=True, exist_ok=True)
+    shutil.copy(out_dir / "selfcal.json", rerun / "selfcal.json")
+    lab = TrackArrays.load(out_dir / "trajectories_labeled" / "tracks.npz")
+    H, W = gt["dynamic"].shape[1:]
+    names = [f"{i:06d}.ppm" for i in range(T)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec2 = stages.sfm_stage(lab, H, W, rerun, cfg, dev, names, log=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev if e.device_type == DeviceType.CUDA) / 1e6
+    syncs = {k: sum(e.count for e in ev if e.key == k) for k in
+             ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")}
+    top = sorted((e for e in ev if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    dq = float(np.abs(rec2.qvec - rec.qvec).max())
+    dt = float(np.abs(rec2.tvec - rec.tvec).max())
+    same = bool((rec2.registered == rec.registered).all())
+    log(f"[sfm] run to run: the stage again from the run's labeled tracks.npz and "
+        f"selfcal.json: same registered frames {same}, max |dq| {dq:.3e}, max |dt| "
+        f"{dt:.3e}; {wall:.3f}s wall under torch.profiler, device kernels {busy:.3f}s = "
+        f"{100 * busy / wall:.1f}% busy; host syncs {json.dumps(syncs)}")
+    for e in top:
+        log(f"[sfm-profile] {e.self_device_time_total / 1e3:10.1f} ms  x{e.count:<6} "
+            f"{e.key[:90]}")
+    if not same or not (dq <= 1e-6 and dt <= 1e-6):
+        fail("sfm: the repeated stage registered other frames or moved poses by > 1e-6")
+    out = dict(sfm_gt_w2c=gt["w2c"], sfm_registered=rec.registered, sfm_qvec=rec.qvec,
+               sfm_tvec=rec.tvec, sfm_params=rec.params, sfm_hw=np.array([H, W]),
+               sfm_gt_focal=np.float64(gt["focal"]))
+    if dump:
+        rows = np.sort(np.random.default_rng(0).choice(lab.num_tracks, SFM_DUMP_TRACKS,
+                                                       replace=False))
+        sub = TrackArrays(xy=lab.xy[rows], mask=lab.mask[rows], labels=lab.labels[rows])
+        sub_dir = WORK / "sfm_subset"
+        sub_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(out_dir / "selfcal.json", sub_dir / "selfcal.json")
+        sub.save(sub_dir / "tracks.npz")
+        r = stages.sfm_stage(sub, H, W, sub_dir, cfg, dev, names, log=lambda *a: None)
+        log(f"[sfm] --dump: {SFM_DUMP_TRACKS} of {lab.num_tracks} labeled tracks (seed 0): "
+            f"{r.num_registered}/{T} registered on the card")
+        out.update(sfm_sub_registered=r.registered, sfm_sub_qvec=r.qvec, sfm_sub_tvec=r.tvec,
+                   sfm_sub_params=r.params)
+    return out
+
+
+def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False):
     import torch
 
     from particlesfm_tpu_torch.ops import corr_lookup as cl
@@ -498,11 +764,11 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
         f"{SEQ['w']}x{SEQ['h']} in {time.perf_counter() - t0:.1f}s (host pool)")
 
     args = R.build_arg_parser().parse_args([
-        "--image_dir", str(img_dir), "--output_dir", str(out_dir), "--skip_sfm"])
+        "--image_dir", str(img_dir), "--output_dir", str(out_dir)])
     cfg = R.config_from_args(args)
     msgs = []
     kept, stage_gb, peak = {}, {}, [0]
-    names = ("flow_stage", "tracking_stage", "depth_stage", "motionseg_stage")
+    names = ("flow_stage", "tracking_stage", "depth_stage", "motionseg_stage", "sfm_stage")
     originals = {n: getattr(stages, n) for n in names}
 
     def measured(name, fn):
@@ -520,6 +786,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
 
     for n in names:
         setattr(stages, n, measured(n, originals[n]))
+    solvers = SolverLog()
     try:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
@@ -531,6 +798,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
     finally:
         for n in names:
             setattr(stages, n, originals[n])
+        solvers.restore()
     peak_gb = (max(peak[0], torch.cuda.max_memory_allocated()) - resident) / 1e9
     flows, tracks = kept["flow_stage"], kept["tracking_stage"]
 
@@ -556,7 +824,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
                  for m in msgs if "net+refine:" in m)
     timings = (out_dir / "timings.txt").read_text().strip().splitlines()
     stage_s = {ln.split()[0]: float(ln.split()[1].rstrip("s")) for ln in timings[1:]}
-    for stage in ("frame_upload", "flow", "trajectories", "depth", "motion_seg"):
+    for stage in ("frame_upload", "flow", "trajectories", "depth", "motion_seg", "sfm"):
         if stage not in stage_s:
             fail(f"slice: no '{stage}' stage in timings.txt")
     log(f"[slice] run_pipeline {wall:.2f}s: stages {json.dumps(stage_s)}; "
@@ -567,10 +835,13 @@ def phase_slice(dev, frames: int, profile_run: bool = False):
         f"{np.round(epe_mean_pairs, 4).tolist()}; {n_long} tracks of length >= 3 "
         f"over {tracks.num_frames} frames; peak allocated {peak_gb:.2f} GB (each stage's "
         f"own: {json.dumps({k: round(v, 3) for k, v in stage_gb.items()})})")
+    dump_on = dump
     dump = check_selfcal(out_dir, msgs, flows, gt["focal"])
     dump.update(check_depth(dev, cfg, kept["depth_stage"], img_dir, gt["inv_depth"]))
     dump.update(check_motionseg(dev, cfg, out_dir, msgs, tracks, kept["depth_stage"],
                                 gt["dynamic"]))
+    dump.update(check_sfm(dev, cfg, out_dir, msgs, kept["sfm_stage"], gt, solvers,
+                          stage_s["sfm"], stage_gb["sfm_stage"], dump_on))
     if profile_run:
         profile_pipeline(dev, img_dir, cfg)
     return dict(launches=launches, img_dir=img_dir, dump=dump)
@@ -622,8 +893,11 @@ def main(argv=None) -> int:
                     help="also profile one more pipeline run (device time by kernel)")
     ap.add_argument("--dump", metavar="DIR", default=None,
                     help="write the selfcal correspondences and draws, the slice's depth, "
-                         "4 frames and the seg check's chunks and card logits to "
-                         "DIR/slice_dump.npz, for scripts/compare_chip_dump_with_jax.py")
+                         "4 frames, the seg check's chunks and card logits and the SfM "
+                         "stage's poses to DIR/slice_dump.npz, and a seeded subset of the "
+                         "labeled tracks (tracks.npz, with the card's SfM poses on it in "
+                         "the npz) and selfcal.json beside it, for "
+                         "scripts/compare_chip_dump_with_jax.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -654,10 +928,13 @@ def main(argv=None) -> int:
     if WORK.exists():
         shutil.rmtree(WORK)
     try:
-        s = phase_slice(dev, FRAMES, args.profile)
+        s = phase_slice(dev, FRAMES, args.profile, bool(args.dump))
         if args.dump:
-            Path(args.dump).mkdir(parents=True, exist_ok=True)
-            np.savez_compressed(Path(args.dump) / "slice_dump.npz", **s["dump"])
+            d = Path(args.dump)
+            d.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(d / "slice_dump.npz", **s["dump"])
+            for name in ("tracks.npz", "selfcal.json"):
+                shutil.copy(WORK / "sfm_subset" / name, d / name)
         kn = phase_net(dev, s["img_dir"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

@@ -1,17 +1,18 @@
 """Batched homography estimation for planar-pair rejection
-(port of particlesfm_tpu/geometry/homography.py:24-128).
+(port of particlesfm_tpu/geometry/homography.py).
 
 4-point DLT through the same Hartley conditioning and 9x9 smallest
 eigenvector (in float64) as the 8-point solver, the symmetric transfer
-error, and a fixed-budget H-RANSAC over all pairs in lockstep.
+error, a fixed-budget H-RANSAC over all pairs in lockstep, and the Faugeras
+decomposition of a calibrated homography.
 """
 from __future__ import annotations
 
 import torch
 
 from ..globalsfm.twoview import sample_indices, uniform_draws
-from .epipolar import _hartley_normalize
-from .linalg3 import smallest_eigvec_psd
+from .epipolar import _hartley_normalize, triangulate_midpoint_depths
+from .linalg3 import smallest_eigvec_psd, svd3x3
 
 
 def dlt_homography(x1: torch.Tensor, x2: torch.Tensor, mask=None) -> torch.Tensor:
@@ -95,3 +96,65 @@ def homography_ransac(x1, x2, mask, thres_sq, num_hypotheses: int = 32,
     H_final = torch.where(better[:, None, None], H_refit, H_best)
     inl_final = torch.where(better[:, None], inl_r, best_inl)
     return H_final, inl_final, inl_final.sum(-1).to(torch.int32)
+
+
+def decompose_homography(H, x1, x2, mask=None):
+    """Faugeras SVD decomposition of a calibrated homography (normalized camera
+    coords): H ~ R + t n^T / d. Returns the cheirality-best (R [..., 3, 3],
+    t [..., 3] unit-or-zero, n [..., 3]) and `t_mag`, the relative baseline
+    magnitude (d1 - d3) / d2 (~0 for pure rotation: the PANORAMIC test).
+
+    Four closed-form candidates (the d' > 0 sign choices) scored by the
+    cheirality votes of the masked correspondences.
+    """
+    if mask is None:
+        mask = torch.ones(x1.shape[:-1], dtype=x1.dtype, device=x1.device)
+    U, S, Vt = svd3x3(H)
+    V = Vt.transpose(-1, -2)
+    s_uv = torch.linalg.det(U) * torch.linalg.det(V)
+    d1, d2, d3 = S[..., 0], S[..., 1], S[..., 2]
+    d2s = torch.where(d2.abs() < 1e-12, torch.full_like(d2, 1e-12), d2)
+    den = torch.clamp(d1 ** 2 - d3 ** 2, min=1e-12)
+    a1 = torch.sqrt(torch.clamp((d1 ** 2 - d2 ** 2) / den, min=0.0))
+    a3 = torch.sqrt(torch.clamp((d2 ** 2 - d3 ** 2) / den, min=0.0))
+    t_mag = (d1 - d3) / d2s
+
+    def candidate(e1, e3):
+        # d' > 0 branch of Faugeras: R' is a y-rotation
+        sin_t = (d1 - d3) * e1 * e3 * a1 * a3 / d2s
+        cos_t = (d1 * (a3 * e3) ** 2 + d3 * (a1 * e1) ** 2) / d2s
+        nrm = torch.sqrt(torch.clamp(sin_t ** 2 + cos_t ** 2, min=1e-12))
+        sin_t, cos_t = sin_t / nrm, cos_t / nrm
+        z = torch.zeros_like(sin_t)
+        o = torch.ones_like(sin_t)
+        Rp = torch.stack([torch.stack([cos_t, z, -sin_t], -1),
+                          torch.stack([z, o, z], -1),
+                          torch.stack([sin_t, z, cos_t], -1)], dim=-2)
+        tp = torch.stack([(d1 - d3) * a1 * e1, z, -(d1 - d3) * a3 * e3], dim=-1)
+        npr = torch.stack([a1 * e1, z, a3 * e3], dim=-1)
+        R = s_uv[..., None, None] * (U @ Rp @ V.transpose(-1, -2))
+        t = (U @ tp[..., None])[..., 0]
+        n = (V @ npr[..., None])[..., 0]
+        # orient the plane normal toward camera 1 (n^T x > 0 for visible points)
+        flip = torch.sign(n[..., 2:3] + 1e-12)
+        return R, t * flip, n * flip
+
+    cands = [candidate(e1, e3) for e1 in (1.0, -1.0) for e3 in (1.0, -1.0)]
+    Rs = torch.stack([c[0] for c in cands], dim=0)
+    ts = torch.stack([c[1] for c in cands], dim=0)
+    ns = torch.stack([c[2] for c in cands], dim=0)
+
+    def unit(t):
+        return t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+
+    votes = []
+    for c in range(4):
+        dd1, dd2 = triangulate_midpoint_depths(Rs[c], unit(ts[c]), x1, x2)
+        votes.append((((dd1 > 0) & (dd2 > 0)) * mask).sum(-1))
+    best = torch.argmax(torch.stack(votes, dim=0), dim=0)
+
+    def take(arr):
+        idx = best[(None, ...) + (None,) * (arr.dim() - 1 - best.dim())]
+        return torch.gather(arr, 0, idx.expand((1,) + arr.shape[1:]))[0]
+
+    return take(Rs), unit(take(ts)), take(ns), t_mag

@@ -4,13 +4,14 @@ Same three input modes (--image_dir+--output_dir, --workspace_dir with an
 images subfolder, --root_dir looping over sequences), same stage toggles and
 hyperparameter defaults, same config tree and `--set` overrides, same output
 layout — so either package's stages can pick up the other's outputs. The
-port runs flow (with self-calibration), trajectories, depth and motion
-segmentation; a config that asks for a stage it does not have yet (SfM, the
-stride-2 composition fallback) raises NotImplementedError. Runs on CUDA
-unless `--device cpu` is given.
+port runs flow (with self-calibration), trajectories, depth, motion
+segmentation and global SfM; a config that asks for an option it does not
+have yet (incremental SfM, linear or nonlinear positions, the stride-2
+composition fallback) raises NotImplementedError. Runs on CUDA unless
+`--device cpu` is given.
 
 Usage:
-    python -m particlesfm_tpu_torch.pipeline.run --image_dir IMG --output_dir OUT --skip_sfm
+    python -m particlesfm_tpu_torch.pipeline.run --image_dir IMG --output_dir OUT
 """
 from __future__ import annotations
 
@@ -197,15 +198,16 @@ def _load_seg_apply(cfg: Config, device):
 
 
 def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
-    """Run the ported stages on one sequence; returns the TrackArrays
-    (labeled unless the scene is taken as static)."""
+    """Run the staged pipeline on one sequence; returns the Reconstruction
+    (or, with --skip_sfm, the TrackArrays, labeled unless the scene is
+    taken as static)."""
     stages.require_ported(cfg)
     dev = resolve_device(device)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     timer = StageTimer(report_path=out / "timings.txt")
     save_config(cfg, out / "config.json")
-    images, _ = load_image_stack(image_dir)
+    images, names = load_image_stack(image_dir)
     T, H, W = images.shape[:3]
     log(f"[pipeline] {T} frames at {W}x{H} from {image_dir} on {dev}")
 
@@ -246,6 +248,12 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
                     tracks = stages.motionseg_stage(tracks, depths, (H, W), out, cfg,
                                                     seg_apply, log=log)
 
+    # stage 4: global SfM
+    result = tracks
+    if not cfg.skip_sfm:
+        with timer.stage("sfm"):
+            result = stages.sfm_stage(tracks, H, W, out, cfg, dev, names, log=log)
+
     # intermediate cleanup (upstream run_particlesfm.py:44-45,66-70 semantics)
     if not cfg.keep_intermediate:
         for sub in ("optical_flows", "depth"):
@@ -255,7 +263,7 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
                 log(f"[pipeline] removed intermediate {sub}/")
     log(timer.report())
     (out / "timings.txt").write_text(timer.report() + "\n")
-    return tracks
+    return result
 
 
 def main(argv=None):

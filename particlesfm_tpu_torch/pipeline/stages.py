@@ -1,11 +1,12 @@
 """Pipeline stages with the reference's on-disk contracts + skip-exists restart
-(port of particlesfm_tpu/pipeline/stages.py:38-432).
+(port of particlesfm_tpu/pipeline/stages.py).
 
 The port runs the flow stage (pair-indexed RAFT with fused photometric
 refinement, then flow self-calibration -> selfcal.json), the trajectory
 stage (occlusion checks, slot-pool tracker with path-consistency LM), the
-depth stage and the motion-segmentation stage. Stages the port does not have
-yet raise NotImplementedError (`require_ported`) instead of being skipped.
+depth and motion-segmentation stages, and the global SfM stage (COLMAP
+model, converted outputs, stats). Options the port does not have yet raise
+NotImplementedError (`require_ported`) instead of being skipped.
 """
 from __future__ import annotations
 
@@ -24,18 +25,27 @@ from ..motionseg import segment_tracks
 from ..ops.flow_ops import flow_check
 from ..tracks.engine import TrackerConfig, run_tracker
 from ..tracks.store import TrackArrays, assemble_tracks
+from ..geometry import cameras
+from ..sfm.export import write_colmap_model, write_converted_outputs
+from ..sfm.manager import run_reconstruction_manager, write_models
+from ..sfm.mapper import _failed, run_global_mapper
+from ..sfm.stats import compute_model_stats, format_model_stats
 from ..utils.config import Config
 
 
 def require_ported(cfg: Config) -> None:
-    """Raise NotImplementedError naming the first stage `cfg` asks for that
-    the port does not have yet."""
+    """Raise NotImplementedError naming every option `cfg` asks for that the
+    port does not have yet."""
     missing = []
     if cfg.flow.stride2_compose_disagree_px > 0:
         missing.append("stride-2 composition fallback "
                        "(flow.stride2_compose_disagree_px > 0)")
     if not cfg.skip_sfm:
-        missing.append("global SfM (pass --skip_sfm)")
+        if cfg.sfm.sfm_type == "incremental":
+            missing.append("incremental SfM (sfm_type=incremental)")
+        if cfg.sfm.position.method in ("linear", "nonlinear"):
+            missing.append(f"{cfg.sfm.position.method} position estimation "
+                           f"(sfm.position.method={cfg.sfm.position.method})")
     if missing:
         raise NotImplementedError(
             "particlesfm_tpu_torch does not port these stages yet: " + "; ".join(missing))
@@ -324,3 +334,50 @@ def motionseg_stage(
     frac = float(labeled.labels[labeled.mask].mean()) if labeled.mask.any() else 0.0
     log(f"[motionseg] dynamic fraction: {frac:.3f}")
     return labeled
+
+
+def sfm_stage(
+    tracks: TrackArrays,
+    height: int,
+    width: int,
+    out_dir: Path,
+    cfg: Config,
+    device,
+    image_names=None,
+    log=print,
+):
+    """Global SfM -> sfm/model (COLMAP bins), colmap_outputs_converted/ and
+    sfm/stats.txt. The focal prior is the flow stage's selfcal.json when it
+    is trustworthy. The mapper runs on `device`."""
+    model_dir = Path(out_dir) / "sfm" / "model"
+    if cfg.skip_exists and (model_dir / "images.bin").exists():
+        log("[sfm] reusing existing model")
+        return None
+    params = None
+    bound_frac = None
+    cal = read_flow_selfcal(out_dir, cfg)
+    if cal is not None:
+        f_cal, bound_frac = cal
+        params = cameras.make_default_params(height, width).numpy()
+        log(f"[sfm] focal prior from flow self-calibration: {f_cal:.1f} "
+            f"(heuristic {params[0]:.1f}, BA trust region +-{bound_frac:.0%})")
+        params[0] = params[1] = f_cal
+    if cfg.sfm.multiple_models:
+        models = run_reconstruction_manager(
+            tracks, height, width, cfg.sfm, max_models=cfg.sfm.max_models,
+            params=params, log=log, focal_bound_frac=bound_frac, device=device)
+        rec = write_models(models, model_dir, image_names, log=log)
+        if rec is None:
+            rec = _failed(tracks.num_frames, cameras.make_default_params(height, width).numpy(),
+                          height, width)
+            write_colmap_model(rec, model_dir, image_names)
+    else:
+        rec = run_global_mapper(tracks, height, width, cfg.sfm, params=params, log=log,
+                                focal_bound_frac=bound_frac, device=device)
+        write_colmap_model(rec, model_dir, image_names)
+    write_converted_outputs(rec, Path(out_dir) / "colmap_outputs_converted", image_names)
+    stats = compute_model_stats(rec)
+    log(format_model_stats(stats))
+    with open(Path(out_dir) / "sfm" / "stats.txt", "w") as f:
+        f.write(format_model_stats(stats) + "\n")
+    return rec

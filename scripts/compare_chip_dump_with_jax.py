@@ -15,12 +15,22 @@ the seg stage's model input (u16 tracks) with the card's logits. Prints:
   reference's own spread: jit against eager, inputs scaled by 1 +- 2^-22,
   and PRNGKeys 1-4;
 - [depth] the JAX depth apply against the card's depth on the 4 frames;
-- [motionseg] the JAX seg apply against the card's logits on the chunks.
+- [motionseg] the JAX seg apply against the card's logits on the chunks;
+- [sfm] the JAX package's sfm_stage and the port's (on the CPU) on the
+  seeded subset of the run's labeled tracks beside the dump (tracks.npz,
+  selfcal.json), against the card's poses on the same subset: registered
+  frames, Sim3 ATE of each against the renderer's poses, and the Sim3 ATE
+  between the pose sets; the card's full-set result beside them; each
+  package again with the track coordinates scaled by 1 + 2^-22 (its own
+  movement under rounding), and the mapper's first two-view RANSAC of both
+  packages on the subset's pair tensors with the reference's draws, also
+  under that scaling.
 """
 from __future__ import annotations
 
 import argparse
 import os
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -66,6 +76,107 @@ def compare_selfcal(z) -> None:
           f"(torch.Generator draws) {run:.3f} px ({run / f_jit - 1:+.3e})")
 
 
+def _centers(qvec, tvec) -> np.ndarray:
+    import torch
+
+    from particlesfm_tpu_torch.geometry import se3
+
+    return se3.camera_center(torch.as_tensor(qvec), torch.as_tensor(tvec)).numpy()
+
+
+def compare_sfm(z, dump_dir: Path) -> None:
+    import json
+    import shutil
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from particlesfm_tpu.globalsfm.twoview import estimate_relative_poses as jerp
+    from particlesfm_tpu.pipeline.stages import sfm_stage as jsfm_stage
+    from particlesfm_tpu.tracks.store import TrackArrays as JTracks
+    from particlesfm_tpu.utils.config import Config as JConfig
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.globalsfm.twoview import estimate_relative_poses, pair_draws
+    from particlesfm_tpu_torch.pipeline.stages import sfm_stage
+    from particlesfm_tpu_torch.sfm.correspondences import build_pair_tensors
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+    from particlesfm_tpu_torch.utils.config import Config
+
+    tr = TrackArrays.load(dump_dir / "tracks.npz")
+    H, W = (int(v) for v in z["sfm_hw"])
+    gt_c = _centers_w2c(z["sfm_gt_w2c"])
+    T = len(gt_c)
+    names = [f"{i:06d}.ppm" for i in range(T)]
+    eps = np.float32(1 + 2.0 ** -22)      # a rounding-only change of the tracks
+
+    def run(pkg, scale):
+        xy = (tr.xy * np.float32(scale)).astype(np.float32)
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(dump_dir / "selfcal.json", Path(tmp) / "selfcal.json")
+            if pkg == "JAX":
+                return jsfm_stage(JTracks(xy, tr.mask, tr.labels), H, W, Path(tmp), JConfig(),
+                                  names, log=lambda *a: None)
+            return sfm_stage(TrackArrays(xy, tr.mask, tr.labels), H, W, Path(tmp), Config(),
+                             "cpu", names, log=lambda *a: None)
+
+    sets = {"card (full set)": (z["sfm_registered"], _centers(z["sfm_qvec"], z["sfm_tvec"]),
+                                float(z["sfm_params"][0])),
+            "card": (z["sfm_sub_registered"], _centers(z["sfm_sub_qvec"], z["sfm_sub_tvec"]),
+                     float(z["sfm_sub_params"][0]))}
+    for pkg in ("JAX", "port (CPU)"):
+        for tag, scale in (("", 1.0), (" x (1 + 2^-22)", eps)):
+            rec = run(pkg, scale)
+            sets[pkg + tag] = (rec.registered, _centers(rec.qvec, rec.tvec), float(rec.params[0]))
+    print(f"[sfm] the dump's {tr.num_tracks} labeled tracks, {T} frames at {W}x{H}:")
+    for name, (reg, c, f) in sets.items():
+        print(f"[sfm]   {name}: {int(reg.sum())}/{T} registered, Sim3 ATE against the "
+              f"renderer {ate_rmse(c[reg], gt_c[reg]):.5f}, focal {f:.2f} px (renderer "
+              f"{float(z['sfm_gt_focal']):.2f}), unregistered {np.nonzero(~reg)[0].tolist()}")
+    for a, b in (("JAX", "port (CPU)"), ("JAX", "card"), ("JAX", "JAX x (1 + 2^-22)"),
+                 ("port (CPU)", "port (CPU) x (1 + 2^-22)")):
+        (ra, ca, _), (rb, cb, _) = sets[a], sets[b]
+        both = ra & rb
+        print(f"[sfm]   {a} vs {b}: same registered set {bool((ra == rb).all())}, "
+              f"Sim3 ATE between the pose sets {ate_rmse(ca[both], cb[both]):.3e}")
+
+    # the mapper's first two-view RANSAC on these tracks, the reference's draws
+    cfg = Config().sfm
+    focal = json.loads((dump_dir / "selfcal.json").read_text())["focal"]
+    pt = build_pair_tensors(tr, tr.mask.copy(), cfg.min_num_matches, seed=cfg.seed,
+                            max_span=cfg.max_pair_span)
+    P = len(pt.pairs)
+    pp = np.float32([W / 2.0, H / 2.0])
+    x1 = ((pt.uv1 - pp) / np.float32(focal)).astype(np.float32)
+    x2 = ((pt.uv2 - pp) / np.float32(focal)).astype(np.float32)
+    thr = np.full(P, (cfg.geometric_verification_max_error_px / focal) ** 2, np.float32)
+
+    def counts(pkg, s):
+        s = np.float32(s)
+        args = (x1 * s, x2 * s, pt.mask, thr * s * s)
+        if pkg == "JAX":
+            return np.asarray(jerp(jax.random.PRNGKey(cfg.seed),
+                                   *(jnp.asarray(a) for a in args)).num_inliers)
+        return estimate_relative_poses(*(torch.from_numpy(np.ascontiguousarray(a))
+                                         for a in args),
+                                       u=torch.from_numpy(pair_draws(cfg.seed, P, (64, 8)))
+                                       ).num_inliers.numpy()
+
+    c = {(pkg, s): counts(pkg, s) for pkg in ("JAX", "port") for s in (1.0, eps, 2 - eps)}
+    for a, b in ((("JAX", 1.0), ("port", 1.0)), (("JAX", 1.0), ("JAX", eps)),
+                 (("JAX", 1.0), ("JAX", 2 - eps)), (("port", 1.0), ("port", eps))):
+        d = np.abs(c[a].astype(int) - c[b])
+        print(f"[sfm]   two-view RANSAC on the {P} pairs, {a[0]} x {a[1]:.8f} vs {b[0]} x "
+              f"{b[1]:.8f}: inlier counts equal on {100 * (d == 0).mean():.1f}% of pairs, "
+              f"max |diff| {d.max()}, mean |diff| {d.mean():.3f}")
+
+
+def _centers_w2c(w2c) -> np.ndarray:
+    R, t = w2c[:, :, :3], w2c[:, :, 3]
+    return -np.einsum("nji,nj->ni", R, t)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dump", help="slice_dump.npz written by chip_smoke.py --dump")
@@ -103,6 +214,8 @@ def main(argv=None) -> int:
               f"(padded slots {diff[~real].max() if (~real).any() else 0.0:.3e}), "
               f"{int(flips[real].sum())} label flips away from the decision, dynamic share "
               f"{(lg[real] > 0).mean():.4f} (card) / {(lg_j[real] > 0).mean():.4f} (JAX)")
+    if "sfm_qvec" in z.files:
+        compare_sfm(z, Path(args.dump).parent)
     return 0
 
 

@@ -20,6 +20,7 @@ from particlesfm_tpu_torch.io.checkpoint import (depth_state_dict_from_jax,
 from particlesfm_tpu_torch.models.depth import DepthNet
 from particlesfm_tpu_torch.models.motionseg import TrajOADepth
 from particlesfm_tpu_torch.models.raft import RAFT, compact_raft
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CKPTS = sorted((Path(__file__).resolve().parents[1] / "checkpoints").glob("*.msgpack"))
 

@@ -15,6 +15,7 @@ from particlesfm_tpu.models.raft import (build_corr_pyramid, lookup_corr,
                                          lookup_corr_gather)
 from particlesfm_tpu.ops.corr_lookup import lookup_corr_pyramid_pallas
 from particlesfm_tpu_torch.ops import corr_lookup as port
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 H, W, D, LEVELS = 8, 16, 32, 3
 

@@ -188,3 +188,70 @@ def test_motionseg_card_matches_cpu(cuda):
            for dev in (cuda, torch.device("cpu"))]
     assert bool(torch.isfinite(out[0]).all())
     assert float((out[0] - out[1]).abs().max()) <= 1e-3
+
+
+def _orbit_tracks(num_views=10, num_points=300, seed=1, focal=500.0, h=480, w=640, noise=0.3):
+    """Cameras on an arc looking at a point cloud (tests/synthetic.py's
+    orbit_scene without JAX): TrackArrays and the true camera centers."""
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(-0.6, 0.6, num_views)
+    C = np.stack([5 * np.sin(ang), 0.3 * np.sin(2 * ang), -5 * np.cos(ang)], 1)
+    X = rng.uniform([-2, -1.5, -1.5], [2, 1.5, 1.5], (num_points, 3))
+    xy = np.zeros((num_points, num_views, 2), np.float32)
+    mask = np.zeros((num_points, num_views), bool)
+    for v, c in enumerate(C):
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        Xc = (X - c) @ R.T
+        uv = focal * Xc[:, :2] / Xc[:, 2:] + [w / 2, h / 2] + rng.normal(0, noise, (num_points, 2))
+        xy[:, v] = uv
+        mask[:, v] = (Xc[:, 2] > 0.1) & (uv[:, 0] > 0) & (uv[:, 0] < w) & (uv[:, 1] > 0) & (uv[:, 1] < h)
+    return TrackArrays(xy=xy, mask=mask), C
+
+
+def test_global_mapper_card_matches_cpu(cuda):
+    """The whole mapper on the card and on the CPU: the same registered
+    frames, camera centers within Sim3 ATE 1e-4, focal within 1e-4 relative;
+    a second card run bit-identical (no atomic sum reaches a decision)."""
+    from particlesfm_tpu_torch.geometry import se3
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.sfm.mapper import run_global_mapper
+    from particlesfm_tpu_torch.utils.config import SfmConfig
+
+    tracks, _ = _orbit_tracks()
+    cfg = SfmConfig()
+    cfg.ba.refine_focal_length = True
+    recs = [run_global_mapper(tracks, 480, 640, cfg, device=d, log=lambda *a: None)
+            for d in (cuda, "cpu", cuda)]
+
+    def centers(r):
+        return se3.camera_center(torch.as_tensor(r.qvec), torch.as_tensor(r.tvec)).numpy()
+
+    assert (recs[0].registered == recs[1].registered).all() and recs[0].num_registered == 10
+    assert ate_rmse(centers(recs[0]), centers(recs[1])) <= 1e-4
+    assert abs(float(recs[0].params[0]) / float(recs[1].params[0]) - 1) <= 1e-4
+    np.testing.assert_array_equal(recs[0].qvec, recs[2].qvec)
+    np.testing.assert_array_equal(recs[0].tvec, recs[2].tvec)
+
+
+def test_segment_sums_card_are_deterministic(cuda):
+    """One-hot per-camera sums on the card: equal to float64 scatter-adds
+    within float32 rounding, and bit-identical across repeats."""
+    from particlesfm_tpu_torch.ops.segment import row_segment_sum, segment_sum
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    idx = torch.randint(0, 48, (700_000,), generator=g, device=cuda)
+    val = torch.randn(700_000, 6, generator=g, device=cuda)
+    a, b = segment_sum(idx, val, 48), segment_sum(idx, val, 48)
+    assert torch.equal(a, b)
+    ref = torch.zeros(48, 6, dtype=torch.float64).index_add_(0, idx.cpu(), val.cpu().double())
+    torch.testing.assert_close(a.cpu().double(), ref, rtol=1e-4, atol=1e-2)
+    fidx = idx[:20_000].reshape(1000, 20)
+    w = val[:20_000, 0].reshape(1000, 20)
+    r = row_segment_sum(fidx, w, 48)
+    ref = torch.zeros(1000, 48, dtype=torch.float64).scatter_add_(1, fidx.cpu(), w.cpu().double())
+    torch.testing.assert_close(r.cpu().double(), ref, rtol=1e-5, atol=1e-5)

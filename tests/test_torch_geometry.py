@@ -25,6 +25,7 @@ from particlesfm_tpu.geometry import linalg3 as jlin
 from particlesfm_tpu.globalsfm.twoview import _sample_indices as jsample
 from particlesfm_tpu_torch.geometry import epipolar, homography, linalg3
 from particlesfm_tpu_torch.globalsfm.twoview import sample_indices
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _t(a):
@@ -195,3 +196,197 @@ def test_homography_ransac_matches_jax():
                                                      jnp.asarray(uv2)))
     assert _inlier_counts_agree(n.numpy(), n_j, np.where(mask, err_j, np.inf), 4.0)
     assert n_j[:-2].min() > 0 and n_j[-1] == 0
+
+
+# ---------------------------------------------------------------------------
+# rotations, se3, cameras, triangulation, essential/pose, homography
+# decomposition (mirrors tests/test_geometry.py). Tolerances: elementwise
+# 1e-5 (absolute on unit-scale quantities, 1e-4 relative on pixels and
+# depths); discrete choices (cheirality branch, Shepperd branch) identical.
+# ---------------------------------------------------------------------------
+
+from particlesfm_tpu.geometry import cameras as jcam
+from particlesfm_tpu.geometry import rotations as jrot
+from particlesfm_tpu.geometry import se3 as jse3
+from particlesfm_tpu.geometry import triangulation as jtri
+from particlesfm_tpu_torch.geometry import cameras, rotations as rot, se3, triangulation
+
+
+def _quats(rng, n):
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def _close(port, ref, atol=1e-5, rtol=1e-5):
+    np.testing.assert_allclose(port.numpy() if torch.is_tensor(port) else port,
+                               np.asarray(ref), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("fn", ["quat_to_rotmat", "quat_to_angle_axis", "quat_normalize",
+                                "quat_conjugate"])
+def test_quaternion_maps_match_jax(fn):
+    q = _quats(np.random.default_rng(0), 64)
+    q[:4] = [[1, 0, 0, 0], [0, 1, 0, 0], [0.0, 0, 0, -1], [1e-4, 1, 0, 0]]
+    _close(getattr(rot, fn)(_t(q)), getattr(jrot, fn)(jnp.asarray(q)))
+
+
+def test_rotmat_to_quat_matches_jax_on_every_branch():
+    """Shepperd's four branches: trace-, x-, y- and z-dominant rotations."""
+    rng = np.random.default_rng(1)
+    aa = rng.normal(size=(64, 3)).astype(np.float32)
+    aa[:3] = np.pi * np.eye(3, dtype=np.float32) * 0.999   # 180 deg about each axis
+    R = np.asarray(jrot.angle_axis_to_rotmat(jnp.asarray(aa)))
+    _close(rot.rotmat_to_quat(_t(R)), jrot.rotmat_to_quat(jnp.asarray(R)))
+    _close(rot.rotmat_to_angle_axis(_t(R)), jrot.rotmat_to_angle_axis(jnp.asarray(R)), atol=1e-4)
+
+
+def test_angle_axis_products_and_projection_match_jax():
+    rng = np.random.default_rng(2)
+    aa = (rng.normal(size=(32, 3)) * np.r_[np.ones(28), 1e-7 * np.ones(4)][:, None]).astype(np.float32)
+    _close(rot.angle_axis_to_quat(_t(aa)), jrot.angle_axis_to_quat(jnp.asarray(aa)))
+    _close(rot.angle_axis_to_rotmat(_t(aa)), jrot.angle_axis_to_rotmat(jnp.asarray(aa)))
+    a, b = _quats(rng, 32), _quats(rng, 32)
+    v = rng.normal(size=(32, 3)).astype(np.float32)
+    _close(rot.quat_multiply(_t(a), _t(b)), jrot.quat_multiply(jnp.asarray(a), jnp.asarray(b)))
+    _close(rot.quat_rotate(_t(a), _t(v)), jrot.quat_rotate(jnp.asarray(a), jnp.asarray(v)))
+    _close(rot.skew(_t(v)), jrot.skew(jnp.asarray(v)))
+    _close(rot.quat_geodesic_angle(_t(a), _t(b)), jrot.quat_geodesic_angle(jnp.asarray(a), jnp.asarray(b)), atol=1e-3)
+    Ra = np.asarray(jrot.quat_to_rotmat(jnp.asarray(a)))
+    Rb = np.asarray(jrot.quat_to_rotmat(jnp.asarray(b)))
+    _close(rot.rotation_geodesic_angle(_t(Ra), _t(Rb)),
+           jrot.rotation_geodesic_angle(jnp.asarray(Ra), jnp.asarray(Rb)), atol=1e-3)
+    M = (Ra + 0.05 * rng.normal(size=Ra.shape)).astype(np.float32)
+    _close(rot.project_to_rotmat(_t(M)), jrot.project_to_rotmat(jnp.asarray(M)), atol=1e-5)
+
+
+def test_se3_matches_jax():
+    rng = np.random.default_rng(3)
+    q1, q2 = _quats(rng, 16), _quats(rng, 16)
+    t1, t2 = rng.normal(size=(2, 16, 3)).astype(np.float32)
+    X = rng.normal(size=(16, 3)).astype(np.float32)
+    J = [jnp.asarray(a) for a in (q1, t1, q2, t2)]
+    P = [_t(a) for a in (q1, t1, q2, t2)]
+    for fn in ("pose_compose", "relative_pose"):
+        for a, b in zip(getattr(se3, fn)(*P), getattr(jse3, fn)(*J)):
+            _close(a, b)
+    for a, b in zip(se3.pose_inverse(P[0], P[1]), jse3.pose_inverse(J[0], J[1])):
+        _close(a, b)
+    _close(se3.pose_apply(P[0], P[1], _t(X)), jse3.pose_apply(J[0], J[1], jnp.asarray(X)))
+    _close(se3.camera_center(P[0], P[1]), jse3.camera_center(J[0], J[1]))
+    _close(se3.pose_from_center(P[0], P[1]), jse3.pose_from_center(J[0], J[1]))
+    _close(se3.pose_to_matrix(P[0], P[1]), jse3.pose_to_matrix(J[0], J[1]))
+
+
+@pytest.mark.parametrize("model", [0, 1, 2])
+def test_cameras_match_jax(model):
+    rng = np.random.default_rng(4)
+    raw = {0: [500.0, 320.0, 240.0], 1: [500.0, 480.0, 320.0, 240.0],
+           2: [500.0, 320.0, 240.0, -0.05]}[model]
+    p = cameras.pack_params(model, raw)
+    jp = jcam.pack_params(model, raw)
+    _close(p, jp)
+    assert cameras.unpack_params(model, p) == pytest.approx(jcam.unpack_params(model, jp))
+    x = rng.normal(size=(40, 3)).astype(np.float32) + np.float32([0, 0, 4])
+    _close(cameras.project(p, _t(x)), jcam.project(jp, jnp.asarray(x)), rtol=1e-5, atol=1e-3)
+    uv = rng.uniform(0, 640, size=(40, 2)).astype(np.float32)
+    _close(cameras.img_to_cam(p, _t(uv)), jcam.img_to_cam(jp, jnp.asarray(uv)))
+    _close(cameras.make_default_params(436, 1024), jcam.make_default_params(436, 1024))
+
+
+def _two_view(rng, n=60, noise=0.0):
+    X = rng.uniform([-1, -1, 4], [1, 1, 6], (n, 3))
+    aa = np.float32([0.05, -0.1, 0.02])
+    q2 = np.asarray(jrot.angle_axis_to_quat(jnp.asarray(aa)))
+    t2 = np.float32([0.5, 0.1, 0.05])
+    Xc2 = np.asarray(jse3.pose_apply(jnp.asarray(q2), jnp.asarray(t2), jnp.asarray(X, jnp.float32)))
+    x1 = (X[:, :2] / X[:, 2:]).astype(np.float32)
+    x2 = (Xc2[:, :2] / Xc2[:, 2:]).astype(np.float32)
+    x1 += rng.normal(size=x1.shape).astype(np.float32) * noise
+    x2 += rng.normal(size=x2.shape).astype(np.float32) * noise
+    return q2, t2, X.astype(np.float32), x1, x2
+
+
+def test_essential_and_pose_from_essential_match_jax():
+    rng = np.random.default_rng(5)
+    q2, t2, X, x1, x2 = _two_view(rng, noise=1e-3)
+    _close(epipolar.essential_from_pose(_t(q2), _t(t2)),
+           jepi.essential_from_pose(jnp.asarray(q2), jnp.asarray(t2)))
+    p1 = np.float32([500, 510, 320, 240, 0])
+    p2 = np.float32([480, 480, 300, 250, 0])
+    E = np.asarray(jepi.essential_from_pose(jnp.asarray(q2), jnp.asarray(t2)))
+    _close(epipolar.fundamental_from_essential(_t(E), _t(p1), _t(p2)),
+           jepi.fundamental_from_essential(jnp.asarray(E), jnp.asarray(p1), jnp.asarray(p2)))
+    En = np.asarray(jepi.essential_closest(jepi.eight_point(jnp.asarray(x1), jnp.asarray(x2))))
+    _close(epipolar.essential_closest(_t(En)), jepi.essential_closest(jnp.asarray(En)), atol=1e-4)
+    Rs, ts = epipolar.decompose_essential(_t(En))
+    jRs, jts = jepi.decompose_essential(jnp.asarray(En))
+    _close(Rs, jRs, atol=1e-4)
+    _close(ts, jts, atol=1e-4)
+    # depths at the true pose (a wrong candidate's near-parallel rays make
+    # its depths a cancellation residual)
+    R2 = np.asarray(jrot.quat_to_rotmat(jnp.asarray(q2)))
+    tu = t2 / np.linalg.norm(t2)
+    d = epipolar.triangulate_midpoint_depths(_t(R2), _t(tu), _t(x1), _t(x2))
+    jd = jepi.triangulate_midpoint_depths(jnp.asarray(R2), jnp.asarray(tu), jnp.asarray(x1),
+                                          jnp.asarray(x2))
+    for a, b in zip(d, jd):
+        _close(a, b, rtol=1e-4, atol=1e-4)
+    q, t, v = epipolar.pose_from_essential(_t(En), _t(x1), _t(x2))
+    jq, jt, jv = jepi.pose_from_essential(jnp.asarray(En), jnp.asarray(x1), jnp.asarray(x2))
+    _close(q, jq, atol=1e-4)
+    _close(t, jt, atol=1e-4)
+    assert float(v) == float(jv) == len(x1)
+
+
+def test_triangulation_matches_jax():
+    rng = np.random.default_rng(6)
+    q2, t2, X, x1, x2 = _two_view(rng, noise=1e-3)
+    n = len(X)
+    q1 = np.tile(np.float32([1, 0, 0, 0]), (n, 1))
+    t1 = np.zeros((n, 3), np.float32)
+    q2n, t2n = np.tile(q2, (n, 1)), np.tile(t2, (n, 1))
+    Xp = triangulation.triangulate_two_view(_t(q1), _t(t1), _t(q2n), _t(t2n), _t(x1), _t(x2))
+    Xj = jtri.triangulate_two_view(*(jnp.asarray(a) for a in (q1, t1, q2n, t2n, x1, x2)))
+    _close(Xp, Xj, rtol=1e-4, atol=1e-4)
+    centers = rng.normal(size=(n, 5, 3)).astype(np.float32)
+    mask = (rng.uniform(size=(n, 5)) > 0.3).astype(np.float32)
+    _close(triangulation.triangulation_angles(_t(centers), _t(X), _t(mask)),
+           jtri.triangulation_angles(jnp.asarray(centers), jnp.asarray(X), jnp.asarray(mask)),
+           atol=1e-3)
+    p = np.float32([500, 500, 320, 240, 0])
+    uv = rng.uniform(0, 600, size=(n, 2)).astype(np.float32)
+    _close(triangulation.reprojection_errors(_t(q2), _t(t2), _t(p), _t(X), _t(uv)),
+           jtri.reprojection_errors(jnp.asarray(q2), jnp.asarray(t2), jnp.asarray(p),
+                                    jnp.asarray(X), jnp.asarray(uv)), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("scene", ["planar", "rotation"])
+def test_decompose_homography_matches_jax(scene):
+    """Faugeras decomposition of a plane seen from a moving camera (the same
+    candidate wins; R, t, n and t_mag within 1e-4), and of a pure rotation's
+    DLT homography (as tests/test_twoview_classify.py: t_mag < 5e-3 in both,
+    R within 2e-3 of the truth and of the reference; t and n are undefined)."""
+    rng = np.random.default_rng(7)
+    aa = np.float32([0.02, -0.08, 0.01])
+    R = np.asarray(jrot.angle_axis_to_rotmat(jnp.asarray(aa)))
+    t = np.float32([0.4, 0.05, 0.1]) if scene == "planar" else np.zeros(3, np.float32)
+    n = np.float32([0.1, -0.2, 1.0])
+    n /= np.linalg.norm(n)
+    x1 = rng.uniform(-0.4, 0.4, size=(3, 80, 2)).astype(np.float32)
+    if scene == "planar":
+        H = np.tile((R + np.outer(t, n) / 5.0).astype(np.float32), (3, 1, 1))
+    else:
+        H = np.tile(R.astype(np.float32), (3, 1, 1))
+    p = np.concatenate([x1, np.ones_like(x1[..., :1])], -1) @ np.swapaxes(H, -1, -2)
+    x2 = (p[..., :2] / p[..., 2:]).astype(np.float32)
+    if scene == "rotation":
+        H = np.asarray(jhom.dlt_homography(jnp.asarray(x1), jnp.asarray(x2)))
+    out = homography.decompose_homography(_t(H), _t(x1), _t(x2))
+    ref = jhom.decompose_homography(jnp.asarray(H), jnp.asarray(x1), jnp.asarray(x2))
+    if scene == "planar":
+        for a, b in zip(out, ref):
+            _close(a, b, atol=1e-4)
+    else:
+        assert float(out[3].max()) < 5e-3 and float(np.asarray(ref[3]).max()) < 5e-3
+        _close(out[0], np.broadcast_to(R, (3, 3, 3)), atol=2e-3)
+        _close(out[0], ref[0], atol=2e-3)

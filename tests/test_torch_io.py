@@ -15,6 +15,7 @@ from particlesfm_tpu_torch.io import flo, images
 from particlesfm_tpu_torch.pipeline import run
 from particlesfm_tpu_torch.utils import config
 from particlesfm_tpu_torch.utils.profiling import StageTimer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ARGV = [
     ["--image_dir", "x", "--output_dir", "y"],

@@ -28,6 +28,7 @@ from particlesfm_tpu_torch.motionseg.data import find_traj_label
 from particlesfm_tpu_torch.pipeline import run
 from particlesfm_tpu_torch.tracks.store import TrackArrays, sample_inside_window
 from particlesfm_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "motionseg_synth3d.msgpack"
 HW = (30, 53)

@@ -14,6 +14,7 @@ from particlesfm_tpu.ops import sampling as jsampling
 from particlesfm_tpu_torch.ops import density, flow_ops, sampling
 
 from flow_scenes import make_flow_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 H, W = 24, 32
 

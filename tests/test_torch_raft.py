@@ -17,6 +17,7 @@ from particlesfm_tpu.models import raft as jraft
 from particlesfm_tpu_torch.io.checkpoint import raft_state_dict_from_jax
 from particlesfm_tpu_torch.models import raft
 from particlesfm_tpu_torch.synth import random_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "raft_synth.msgpack"
 

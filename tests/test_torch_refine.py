@@ -11,6 +11,7 @@ import torch
 
 from particlesfm_tpu.flow import refine as jrefine
 from particlesfm_tpu_torch.flow import refine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 H, W = 48, 64
 

@@ -10,6 +10,7 @@ import particlesfm_tpu_torch
 from particlesfm_tpu_torch.flow.infer import load_flow_apply_pairs
 from particlesfm_tpu_torch.pipeline import run
 from particlesfm_tpu_torch.pipeline.run import DEFAULT_RAFT_CKPT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PKG = Path(particlesfm_tpu_torch.__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "particlesfm_tpu"}
@@ -27,6 +28,10 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     assert len(files) > 20
+    for mod in ("native.py", "graph/viewgraph.py", "sfm/mapper.py", "sfm/manager.py",
+                "sfm/export.py", "sfm/correspondences.py", "globalsfm/ba.py",
+                "globalsfm/translation.py", "io/colmap_model.py", "eval/pose_eval.py"):
+        assert PKG / mod in files, mod
     bad = {f"{f.relative_to(PKG.parent)}: {m}" for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -57,9 +62,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,stage", [
-    ((), "global SfM"),
-    (("--set", "flow.selfcal=false"), "global SfM"),
-    (("--assume_static", "--set", "flow.selfcal=false"), "global SfM"),
+    (("--sfm_type", "incremental"), "incremental SfM"),
+    (("--set", "sfm.position.method=linear"), "linear position"),
+    (("--set", "sfm.position.method=nonlinear"), "nonlinear position"),
     (("--assume_static", "--skip_sfm", "--set", "flow.selfcal=false",
       "--set", "flow.stride2_compose_disagree_px=4.0"), "stride-2 composition"),
 ])
@@ -68,6 +73,23 @@ def test_unported_stages_raise(tmp_path, extra, stage):
     with pytest.raises(NotImplementedError, match=stage):
         run.run_pipeline(tmp_path, tmp_path / "out", cfg, device="cpu")
     assert not (tmp_path / "out").exists()          # raised before any work
+
+
+@pytest.mark.parametrize("extra", [
+    (),
+    ("--sfm_type", "glomap"),
+    ("--set", "sfm.position.method=glomap"),
+    ("--set", "sfm.multiple_models=false"),
+    ("--assume_static", "--set", "flow.selfcal=false"),
+    ("--skip_sfm", "--sfm_type", "incremental", "--set", "sfm.position.method=linear"),
+])
+def test_require_ported_accepts_every_ported_configuration(tmp_path, extra):
+    """require_ported raises only for incremental SfM, linear/nonlinear
+    positions and the stride-2 composition fallback; the default command
+    and the other SfM modes pass (SfM options are moot with --skip_sfm)."""
+    from particlesfm_tpu_torch.pipeline.stages import require_ported
+
+    require_ported(run.config_from_args(_args(tmp_path, *extra)))
 
 
 def test_reduced_resolution_flow_raises():

@@ -33,6 +33,7 @@ from particlesfm_tpu_torch.pipeline.stages import read_flow_selfcal
 from particlesfm_tpu_torch.utils.config import Config
 
 from flow_scenes import make_conditioned_flow_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F_GT, CX, CY = 310.0, 160.0, 120.0
 _ROUNDINGS = (1.0 + 2.0 ** -22, 1.0 - 2.0 ** -22)   # about one float32 step

@@ -19,6 +19,7 @@ from particlesfm_tpu.synth import random_scene as jrandom_scene
 from particlesfm_tpu_torch.io.flo import read_flo
 from particlesfm_tpu_torch.pipeline import run
 from particlesfm_tpu_torch.synth import random_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 T, H, W = 6, 64, 96
 FLOWS = ("flow_f", "flow_b", "flow_f2", "flow_b2")

@@ -17,6 +17,7 @@ from particlesfm_tpu_torch.ops.flow_ops import flow_check
 from particlesfm_tpu_torch.tracks import engine, optimize, store
 
 from flow_scenes import make_flow_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(scope="module")
