@@ -29,13 +29,29 @@ Phases (each prints its lines; any failure exits non-zero):
                            seg apply on the card against the CPU on the first
                            and the last (padded) chunk of the run's own
                            input, and against the run's labels; IoU vs GT.
-  5. net     — one block of 8 pairs through RAFT with K1 and with the plain
+  5. modes   — every other run_pipeline option on the same frames:
+               (a) `--sfm_type incremental` as the user's command: K1
+                   launches, model and converted outputs, >= 3 registered
+                   frames with finite poses; the first PnP registration and
+                   the first BA card vs CPU; the incremental stage repeated
+                   (same registration order, bit-identical poses);
+               (b) `sfm.position.method=linear` and `=nonlinear` on the
+                   default run's labeled tracks: each estimator card vs CPU;
+               (c) the default run's last BA problem with solver="pcg",
+                   card vs CPU, and its gap to the dense solve;
+               (d) the flow stage with `flow.infer_scale=0.5` and
+                   `flow.stride2_compose_disagree_px=4`: K1 at the 28x64
+                   shape, finite flows, stride-1 EPE, the fallback card vs
+                   CPU on the run's own flows; one block through RAFT with
+                   K1 and with the plain lookup at 224x512 (`[kernel-half]`).
+  6. net     — one block of 8 pairs through RAFT with K1 and with the plain
                lookup on the card; the flows must agree. `[kernel-net]`: the
                measurements of phase 3 on the pyramid and coordinates of the
                block's last GRU iteration (the net's own coordinates).
 The last two lines are the card's `name, power.limit` and
 {"ok": true, "device": {...}}; the line before them lists the kernels (the
-`*_net` keys are the `[kernel-net]` numbers).
+`*_net` keys are the `[kernel-net]` numbers, the `*_half` keys those of
+`[kernel-half]` and the half-scale flow stage's launches).
 """
 from __future__ import annotations
 
@@ -489,25 +505,34 @@ def check_motionseg(dev, cfg, out_dir: Path, msgs, tracks, depths, gt_dynamic) -
 
 
 class SolverLog:
-    """Wraps the mapper's solvers for the timed run: the seconds of every
-    call (a device synchronize on each side) and the first call's arguments
-    and result, kept on the card for the card-vs-CPU checks."""
+    """Wraps the SfM stage's solvers for the timed run: the seconds of every
+    call (a device synchronize on each side) and the first and the last
+    call's arguments and result, kept on the card for the card-vs-CPU
+    checks. `targets`: (module, function names) pairs; by default the
+    global mapper's solvers and the model writers."""
     TIMED = ("build_pair_tensors", "upload_tracks_u16", "pair_draws", "threefry_uniform",
              "estimate_relative_poses", "full_epipolar_votes", "classify_two_view",
              "average_rotations", "build_observations", "build_obs_device",
              "refine_pairwise_translations", "triplet_baseline_constraints",
              "estimate_positions_lud", "triangulate_tracks", "filter_observations",
              "bundle_adjust", "estimate_pose_pnp")
+    INCREMENTAL = ("build_pair_tensors", "pair_draws", "threefry_uniform",
+                   "estimate_relative_poses", "track_inlier_stats",
+                   "geometric_dynamic_track_filter", "build_observations",
+                   "triangulate_tracks", "filter_observations", "bundle_adjust",
+                   "estimate_pose_pnp")
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from particlesfm_tpu_torch.pipeline import stages
         from particlesfm_tpu_torch.sfm import mapper
 
-        self.first, self.secs, self.count, self._orig = {}, {}, {}, []
-        for name in self.TIMED:
-            self._wrap(mapper, name)
-        for name in ("write_models", "write_converted_outputs"):
-            self._wrap(stages, name)
+        if targets is None:
+            targets = [(mapper, self.TIMED),
+                       (stages, ("write_models", "write_converted_outputs"))]
+        self.first, self.last, self.secs, self.count, self._orig = {}, {}, {}, {}, []
+        for mod, names in targets:
+            for name in names:
+                self._wrap(mod, name)
 
     def _wrap(self, mod, name):
         import torch
@@ -523,6 +548,7 @@ class SolverLog:
             self.secs[name] = self.secs.get(name, 0.0) + time.perf_counter() - t0
             self.count[name] = self.count.get(name, 0) + 1
             self.first.setdefault(name, (a, kw, out))
+            self.last[name] = (a, kw, out)
             return out
         setattr(mod, name, timed)
 
@@ -844,17 +870,357 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
                           stage_s["sfm"], stage_gb["sfm_stage"], dump_on))
     if profile_run:
         profile_pipeline(dev, img_dir, cfg)
-    return dict(launches=launches, img_dir=img_dir, dump=dump)
+    return dict(launches=launches, img_dir=img_dir, dump=dump, gt=gt, out_dir=out_dir,
+                last_ba=solvers.last["bundle_adjust"])
 
 
-def phase_net(dev, img_dir: Path):
-    """One block through RAFT with K1 and with the plain lookup: the flows
-    must agree. K1 is then measured on the pyramid and the coordinates of
-    the block's last GRU iteration (the net's own coordinates)."""
+def _pose_eval(out_dir: Path, gt):
+    """The run's converted poses against the renderer's, over the frames
+    the run registered (Sim3 ATE, RPE between consecutive registered ones)."""
+    from particlesfm_tpu_torch.eval.pose_eval import evaluate_sequence, load_pose_dir
+
+    est = load_pose_dir(out_dir / "colmap_outputs_converted" / "poses")
+    T = len(gt["w2c"])
+    return est, evaluate_sequence(est, {f"{i:06d}": gt["w2c"][i] for i in range(T)},
+                                  "seq_03_dyn", min_registered_ratio=0.0)
+
+
+def _registration_order(msgs):
+    return [int(m.split("registered image ")[1].split()[0]) for m in msgs
+            if m.startswith("[incremental] registered image")]
+
+
+def _stage_dir(name: str, src: Path) -> Path:
+    """A fresh output directory holding `src`'s selfcal.json (the focal prior)."""
+    d = WORK / name
+    d.mkdir(parents=True, exist_ok=True)
+    shutil.copy(src / "selfcal.json", d / "selfcal.json")
+    return d
+
+
+def modes_incremental(dev, img_dir: Path, gt) -> dict:
+    """(a) `--sfm_type incremental` as the user's command, then its checks."""
+    import torch
+
+    from particlesfm_tpu_torch.io import colmap_model as cm
+    from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.sfm import incremental
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    out_dir = WORK / "out_incremental"
+    cfg = R.config_from_args(R.build_arg_parser().parse_args([
+        "--image_dir", str(img_dir), "--output_dir", str(out_dir), "--sfm_type", "incremental"]))
+    msgs = []
+    solvers = SolverLog([(incremental, SolverLog.INCREMENTAL),
+                         (stages, ("write_colmap_model", "write_converted_outputs"))])
+    try:
+        cl.reset_launches()
+        t0 = time.perf_counter()
+        rec = R.run_pipeline(img_dir, out_dir, cfg, log=msgs.append, device=dev)
+        wall = time.perf_counter() - t0
+        launches, vec_launches = cl.launches, cl.vec_launches
+    finally:
+        solvers.restore()
+    T = len(gt["w2c"])
+    blocks = math.ceil((2 * (T - 1) + 2 * (T - 2)) / cfg.flow.per_device)
+    if launches != blocks * cfg.flow.iters or vec_launches != launches:
+        fail(f"modes: incremental run launched K1 {launches} times ({vec_launches} 16-byte), "
+             f"expected {blocks * cfg.flow.iters}, all 16-byte")
+    for m in msgs:
+        if m.startswith(("[sfm]", "[incremental]")) and "registered image" not in m:
+            log(f"[modes-log] {m}")
+    timings = (out_dir / "timings.txt").read_text().strip().splitlines()
+    stage_s = {ln.split()[0]: float(ln.split()[1].rstrip("s")) for ln in timings[1:]}
+    n_reg = rec.num_registered
+    if n_reg < 3:
+        fail(f"modes: the incremental run registered {n_reg} frames (< 3)")
+    if not (np.isfinite(rec.qvec[rec.registered]).all() and np.isfinite(rec.tvec[rec.registered]).all()):
+        fail("modes: non-finite incremental poses")
+    _, images, points = cm.read_model_binary(out_dir / "sfm" / "model")
+    est, res = _pose_eval(out_dir, gt)
+    if len(images) != n_reg or len(est) != n_reg or (out_dir / "sfm" / "model" / "0").exists():
+        fail(f"modes: {len(images)} images in the model and {len(est)} converted poses for "
+             f"{n_reg} registered frames (one model expected)")
+    if not (out_dir / "sfm" / "stats.txt").read_text().startswith(f"Registered images: {n_reg}"):
+        fail("modes: sfm/stats.txt does not report the registered count")
+    order = _registration_order(msgs)
+    focal = float(rec.params[0])
+    layers = {k: (round(v, 4), solvers.count[k]) for k, v in sorted(
+        solvers.secs.items(), key=lambda kv: -kv[1])}
+    log(f"[modes] (a) run_pipeline --sfm_type incremental {wall:.2f}s: stages "
+        f"{json.dumps(stage_s)}; K1 {launches} launches ({vec_launches} 16-byte); "
+        f"{n_reg}/{T} frames registered {np.nonzero(rec.registered)[0].tolist()}, "
+        f"{len(points)} points; over them Sim3 ATE {res.ate:.5f}, RPE-t "
+        f"{res.rpe_trans:.5f}, RPE-r {res.rpe_rot_deg:.4f} deg against the renderer; "
+        f"focal {focal:.2f} px (renderer {gt['focal']:.2f} px, "
+        f"{100 * (focal / gt['focal'] - 1):+.2f}%); {solvers.count.get('bundle_adjust', 0)} BA "
+        f"calls, {solvers.count.get('estimate_pose_pnp', 0)} PnP calls; registration order "
+        f"{order}")
+    log(f"[modes] (a) seconds (calls) by solver, device-synchronized: {json.dumps(layers)}")
+
+    def both(name):
+        a, kw, out = solvers.first[name]
+        fn = getattr(incremental, name)
+        t0 = time.perf_counter()
+        card = fn(*a, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fn(*_to_cpu(a), **_to_cpu(kw))
+        return a, out, card, cpu, t_card, time.perf_counter() - t0
+
+    a, out, card, cpu, tc, tp = both("estimate_pose_pnp")
+    n = [int(x.num_inliers) for x in (out, card, cpu)]
+    log(f"[modes] (a) card vs CPU, the first PnP registration ({int(a[2].sum())} 2D-3D pairs, "
+        f"the reference's draws): inliers run {n[0]}, card {n[1]}, CPU {n[2]}; "
+        f"{tc:.3f}s / {tp:.3f}s")
+    if n[1] != n[2] or n[0] != n[1]:
+        fail(f"modes: first PnP inlier counts run/card/CPU {n}")
+    a, out, card, cpu, tc, tp = both("bundle_adjust")
+    c_c, c_p = float(card.cost), float(cpu.cost)
+    rel = abs(c_c - c_p) / max(abs(c_p), 1e-30)
+    rerun_same = bool(torch.equal(card.q, out.q) and torch.equal(card.X, out.X))
+    log(f"[modes] (a) card vs CPU, the first incremental BA ({a[0].shape[0]} views, "
+        f"{a[3].shape[0]} tracks): final cost {c_c:.6e} / {c_p:.6e} ({rel:.2e} relative), LM "
+        f"iterations {card.iters} / {cpu.iters}; card repeat equals the run: {rerun_same}; "
+        f"{tc:.3f}s / {tp:.3f}s")
+    if not rel <= 1e-4:
+        fail(f"modes: first incremental BA card vs CPU cost differs by {rel:.2e} > 1e-4")
+
+    # run to run: the incremental stage again from the run's own labeled tracks
+    lab = TrackArrays.load(out_dir / "trajectories_labeled" / "tracks.npz")
+    H, W = gt["dynamic"].shape[1:]
+    names = [f"{i:06d}.ppm" for i in range(T)]
+    msgs2 = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec2 = stages.sfm_stage(lab, H, W, _stage_dir("inc_rerun", out_dir), cfg, dev, names,
+                            log=msgs2.append)
+    torch.cuda.synchronize()
+    t_rerun = time.perf_counter() - t0
+    same_order = _registration_order(msgs2) == order
+    bitwise = bool(np.array_equal(rec2.qvec, rec.qvec) and np.array_equal(rec2.tvec, rec.tvec)
+                   and (rec2.registered == rec.registered).all())
+    log(f"[modes] (a) run to run: the incremental stage again from the run's labeled tracks: "
+        f"same registration order {same_order}, bit-identical poses {bitwise}; {t_rerun:.3f}s")
+    if not (same_order and bitwise):
+        fail("modes: the repeated incremental stage registered in another order or moved poses")
+    # the last PnP call (the loop ends on a round where every candidate
+    # fails): its inputs, for the JAX package's PnP in the --dump compare
+    a, kw, out = solvers.last["estimate_pose_pnp"]
+    return dict(inc_sfm_s=stage_s["sfm"], inc_registered=rec.registered, inc_qvec=rec.qvec,
+                inc_tvec=rec.tvec, inc_params=rec.params, inc_order=np.array(order),
+                inc_pnp_X=a[0].cpu().numpy(), inc_pnp_x=a[1].cpu().numpy(),
+                inc_pnp_mask=a[2].cpu().numpy(), inc_pnp_thres=np.float64(a[3]),
+                inc_pnp_u=kw["u"].cpu().numpy(), inc_pnp_inliers=np.int64(int(out.num_inliers)))
+
+
+def modes_positions(dev, slice_out: Path, gt) -> None:
+    """(b) The SfM stage with linear and with nonlinear positions on the
+    default run's labeled tracks; each estimator card vs CPU."""
+    import torch
+
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.sfm import mapper
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    lab = TrackArrays.load(slice_out / "trajectories_labeled" / "tracks.npz")
+    T = len(gt["w2c"])
+    H, W = gt["dynamic"].shape[1:]
+    names = [f"{i:06d}.ppm" for i in range(T)]
+    for method, fn_name in (("linear", "estimate_positions_linear"),
+                            ("nonlinear", "refine_positions_nonlinear")):
+        cfg = R.config_from_args(R.build_arg_parser().parse_args([
+            "--image_dir", "-", "--output_dir", "-", "--set", f"sfm.position.method={method}"]))
+        d = _stage_dir(f"sfm_{method}", slice_out)
+        solvers = SolverLog([(mapper, (fn_name,))])
+        msgs = []
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = stages.sfm_stage(lab, H, W, d, cfg, dev, names, log=msgs.append)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            solvers.restore()
+        if fn_name not in solvers.first:
+            fail(f"modes: the {method} stage never called {fn_name}")
+        ate = _pose_eval(d, gt)[1].ate if rec.num_registered >= 3 else float("nan")
+        a, kw, out = solvers.first[fn_name]
+        fn = getattr(mapper, fn_name)
+        t0 = time.perf_counter()
+        card = fn(*a, **kw)
+        torch.cuda.synchronize()
+        tc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fn(*_to_cpu(a), **_to_cpu(kw))
+        tp = time.perf_counter() - t0
+        pc, pp = card.cpu().numpy(), cpu.numpy()
+        spread = float(np.linalg.norm(pp - pp.mean(0), axis=1).mean())
+        d_ate = float(ate_rmse(pc, pp))
+        focal = float(rec.params[0])
+        log(f"[modes] (b) {method} positions: SfM stage {secs:.3f}s, {rec.num_registered}/{T} "
+            f"registered, Sim3 ATE {ate:.5f} against the renderer, focal {focal:.2f} px "
+            f"({100 * (focal / gt['focal'] - 1):+.2f}%); {solvers.count[fn_name]} {fn_name} "
+            f"call(s), {solvers.secs[fn_name]:.3f}s; card vs CPU on the first call's inputs "
+            f"({a[0]} views, {a[1].shape[0]} edge rows): Sim3 ATE {d_ate:.3e} = "
+            f"{d_ate / max(spread, 1e-30):.3e} of the spread; card repeat equals the run: "
+            f"{bool(torch.equal(card, out))}; {tc:.3f}s / {tp:.3f}s")
+        if not d_ate <= 1e-4 * spread:
+            fail(f"modes: {method} positions card vs CPU Sim3 ATE {d_ate} > 1e-4 of {spread}")
+
+
+def modes_pcg(last_ba) -> None:
+    """(c) The default run's last BA problem with solver="pcg", card vs CPU."""
+    import torch
+
+    from particlesfm_tpu_torch.globalsfm.ba import bundle_adjust
+
+    a, kw, dense = last_ba
+    kw = dict(kw, solver="pcg")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = bundle_adjust(*a, **kw)
+    torch.cuda.synchronize()
+    tc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = bundle_adjust(*_to_cpu(a), **_to_cpu(kw))
+    tp = time.perf_counter() - t0
+    c_c, c_p, c_d = float(card.cost), float(cpu.cost), float(dense.cost)
+    rel = abs(c_c - c_p) / max(abs(c_p), 1e-30)
+    log(f"[modes] (c) PCG on the default run's last BA problem ({a[0].shape[0]} views, "
+        f"{a[3].shape[0]} tracks, 50 CG iterations per LM step): final cost card {c_c:.6e} / "
+        f"CPU {c_p:.6e} ({rel:.2e} relative), LM iterations {card.iters} / {cpu.iters}; the "
+        f"run's dense solve {c_d:.6e} ({dense.iters} LM iterations): PCG - dense "
+        f"{(c_c - c_d) / c_d:+.3e} relative; {tc:.3f}s / {tp:.3f}s")
+    if not rel <= 1e-4:
+        fail(f"modes: PCG card vs CPU final cost differs by {rel:.2e} > 1e-4")
+
+
+def modes_half_flow(dev, img_dir: Path, gt) -> dict:
+    """(d) The flow stage at flow.infer_scale=0.5 with the stride-2
+    composition fallback at 4 px; K1's launches, the flows, and the
+    fallback card vs CPU on the run's own flows."""
+    import torch
+
+    from particlesfm_tpu_torch.io.images import load_image_stack
+    from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.ops.flow_ops import compose_flow
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+
+    out_dir = WORK / "out_half"
+    cfg = R.config_from_args(R.build_arg_parser().parse_args([
+        "--image_dir", str(img_dir), "--output_dir", str(out_dir),
+        "--set", "flow.infer_scale=0.5", "--set", "flow.stride2_compose_disagree_px=4.0"]))
+    images, _ = load_image_stack(img_dir)
+    apply = R._load_raft_apply(cfg, dev)
+    stack = stages.upload_frame_stack(images, dev)
+    out_dir.mkdir(parents=True)
+    calls, msgs = [], []
+    fallback = stages.stride2_compose_fallback
+
+    def keep(*a, **kw):
+        out = fallback(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+    stages.stride2_compose_fallback = keep
+    try:
+        cl.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flows = stages.flow_stage(images, out_dir, cfg, dev, apply, device_stack=stack,
+                                  log=msgs.append)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, vec_launches = cl.launches, cl.vec_launches
+    finally:
+        stages.stride2_compose_fallback = fallback
+    T = images.shape[0]
+    blocks = math.ceil((2 * (T - 1) + 2 * (T - 2)) / cfg.flow.per_device)
+    if launches != blocks * cfg.flow.iters or vec_launches != launches:
+        fail(f"modes: half-scale flow launched K1 {launches} times ({vec_launches} 16-byte), "
+             f"expected {blocks * cfg.flow.iters}, all 16-byte")
+    for name in ("flow_f", "flow_b", "flow_f2", "flow_b2"):
+        if tuple(flows[name].shape[1:3]) != images.shape[1:3] or \
+                not bool(torch.isfinite(flows[name]).all()):
+            fail(f"modes: half-scale {name} not finite at the frames' size")
+    epe = np.linalg.norm(flows["flow_f"][:GT_PAIRS].cpu().numpy() - gt["flow"], axis=-1)
+    epe_median = float(np.median(epe))
+    if not epe_median <= 2.0:
+        fail(f"modes: half-scale median stride-1 EPE {epe_median} px > 2.0")
+    if len(calls) != 2:
+        fail(f"modes: the stride-2 fallback ran {len(calls)} times, expected 2")
+    shares, worst_mask, worst_val = [], 0, 0.0
+    tau = cfg.flow.stride2_compose_disagree_px
+    t_cpu = 0.0
+    for a, kw, (blend, used) in calls:
+        t0 = time.perf_counter()
+        blend_c, used_c = fallback(*_to_cpu(a), **_to_cpu(kw))
+        t_cpu += time.perf_counter() - t0
+        comp, _ = compose_flow(a[1].cpu(), a[2].cpu())
+        gap = (torch.linalg.vector_norm(a[0].cpu() - comp, dim=-1) - tau).abs()
+        differ = used.cpu() != used_c
+        worst_mask += int((differ & (gap >= 1e-4)).sum())
+        same = ~differ
+        worst_val = max(worst_val, float((blend.cpu() - blend_c).abs()[same].max()))
+        shares.append(float(used.float().mean()))
+    log(f"[modes] (d) flow stage at infer_scale 0.5 with the 4 px stride-2 fallback "
+        f"{secs:.3f}s: K1 {launches} launches ({vec_launches} 16-byte); stride-1 EPE median "
+        f"{epe_median:.4f} px against the renderer; fallback share of pixels flow_f2 "
+        f"{100 * shares[0]:.3f}%, flow_b2 {100 * shares[1]:.3f}%; card vs CPU on the run's "
+        f"flows: {worst_mask} pixels with another fallback decision away from the threshold, "
+        f"blended max |diff| {worst_val:.3e} px; CPU {t_cpu:.3f}s")
+    if worst_mask or not worst_val <= 1e-5:
+        fail(f"modes: fallback card vs CPU: {worst_mask} decisions differ, values {worst_val}")
+    return dict(launches_half=launches)
+
+
+def phase_modes(dev, s: dict, dump: bool) -> dict:
+    """Phase 5: the other run_pipeline options on the slice's frames. With
+    `dump`, the incremental, linear and nonlinear stages also run on the
+    --dump track subset, whose poses go into the dump."""
+    res = modes_incremental(dev, s["img_dir"], s["gt"])
+    modes_positions(dev, s["out_dir"], s["gt"])
+    modes_pcg(s["last_ba"])
+    res.update(modes_half_flow(dev, s["img_dir"], s["gt"]))
+    if dump:
+        from particlesfm_tpu_torch.pipeline import run as R
+        from particlesfm_tpu_torch.pipeline import stages
+        from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+        sub = TrackArrays.load(WORK / "sfm_subset" / "tracks.npz")
+        T = len(s["gt"]["w2c"])
+        H, W = s["gt"]["dynamic"].shape[1:]
+        names = [f"{i:06d}.ppm" for i in range(T)]
+        for mode, extra in (("incremental", ["--sfm_type", "incremental"]),
+                            ("linear", ["--set", "sfm.position.method=linear"]),
+                            ("nonlinear", ["--set", "sfm.position.method=nonlinear"])):
+            cfg = R.config_from_args(R.build_arg_parser().parse_args(
+                ["--image_dir", "-", "--output_dir", "-", *extra]))
+            r = stages.sfm_stage(sub, H, W, _stage_dir(f"sub_{mode}", WORK / "sfm_subset"),
+                                 cfg, dev, names, log=lambda *a: None)
+            log(f"[modes] --dump: {mode} on the {SFM_DUMP_TRACKS}-track subset: "
+                f"{r.num_registered}/{T} registered on the card")
+            s["dump"].update({f"sfm_sub_{mode}_registered": r.registered,
+                              f"sfm_sub_{mode}_qvec": r.qvec, f"sfm_sub_{mode}_tvec": r.tvec,
+                              f"sfm_sub_{mode}_params": r.params})
+    return res
+
+
+def phase_net(dev, img_dir: Path, scale: float = 1.0, tag: str = "kernel-net"):
+    """One block through RAFT with K1 and with the plain lookup, at the
+    pipeline's `scale` (`flow.infer_scale`): the flows must agree. K1 is
+    then measured on the pyramid and the coordinates of the block's last GRU
+    iteration (the net's own coordinates)."""
     import torch
     import torch.nn.functional as F
 
-    from particlesfm_tpu_torch.flow.infer import load_model
+    from particlesfm_tpu_torch.flow.infer import _net_flow, load_model
     from particlesfm_tpu_torch.io.images import load_image_stack
     from particlesfm_tpu_torch.ops.corr_lookup import lookup_corr, lookup_corr_plain
     from particlesfm_tpu_torch.pipeline.run import DEFAULT_RAFT_CKPT
@@ -873,18 +1239,20 @@ def phase_net(dev, img_dir: Path):
 
     with torch.inference_mode():
         model.lookup = keep_last
-        fk = model(x[:n], x[1:], iters=8)
+        fk = _net_flow(model, x[:n], x[1:], 8, scale)
         model.lookup = lookup_corr_plain
-        fp = model(x[:n], x[1:], iters=8)
+        fp = _net_flow(model, x[:n], x[1:], 8, scale)
     d = (fk - fp).abs()
     mean_d, max_d = float(d.mean()), float(d.max())
     if not (mean_d <= 1e-3 and max_d <= 1e-2):
-        fail(f"net: K1 vs plain flows differ by mean {mean_d} / max {max_d} px")
-    log(f"[net] RAFT block of {n} pairs at {x.shape[2]}x{x.shape[1]}: K1 vs plain lookup "
-        f"flow |diff| mean {mean_d:.3e} px, max {max_d:.3e} px")
+        fail(f"net: K1 vs plain flows differ by mean {mean_d} / max {max_d} px (scale {scale})")
+    H8, W8 = last["pyramid"][0].shape[-2:]
+    log(f"[net] RAFT block of {n} pairs, frames {x.shape[2]}x{x.shape[1]} at scale {scale} "
+        f"(net input {8 * W8}x{8 * H8}): K1 vs plain lookup flow |diff| mean {mean_d:.3e} px, "
+        f"max {max_d:.3e} px")
     del fk, fp, d
     with torch.inference_mode():
-        return measure_lookup("kernel-net", last["pyramid"], last["coords"], last["radius"])
+        return measure_lookup(tag, last["pyramid"], last["coords"], last["radius"])
 
 
 def main(argv=None) -> int:
@@ -929,12 +1297,17 @@ def main(argv=None) -> int:
         shutil.rmtree(WORK)
     try:
         s = phase_slice(dev, FRAMES, args.profile, bool(args.dump))
-        if args.dump:
+        if args.dump:          # saved before [modes] too, so that its failure leaves the dump
             d = Path(args.dump)
             d.mkdir(parents=True, exist_ok=True)
             np.savez_compressed(d / "slice_dump.npz", **s["dump"])
             for name in ("tracks.npz", "selfcal.json"):
                 shutil.copy(WORK / "sfm_subset" / name, d / name)
+        m = phase_modes(dev, s, bool(args.dump))
+        if args.dump:
+            s["dump"].update(m)
+            np.savez_compressed(d / "slice_dump.npz", **s["dump"])
+        kh = phase_net(dev, s["img_dir"], scale=0.5, tag="kernel-half")
         kn = phase_net(dev, s["img_dir"])
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -947,7 +1320,9 @@ def main(argv=None) -> int:
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
         library_ms=k["library_ms"], ms_net=kn["ms"], plain_ms_net=kn["plain_ms"],
         library_ms_net=kn["library_ms"], bound_ms_net=kn["bound_ms"],
-        max_abs_err_net=kn["max_abs_err"])]
+        max_abs_err_net=kn["max_abs_err"], launches_half=m["launches_half"],
+        ms_half=kh["ms"], plain_ms_half=kh["plain_ms"], library_ms_half=kh["library_ms"],
+        bound_ms_half=kh["bound_ms"], max_abs_err_half=kh["max_abs_err"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-"""Flow-net inference: checkpoint loading and pair-indexed block apply
-(port of particlesfm_tpu/flow/infer.py:33-60,149-285).
+"""Flow-net inference: checkpoint loading, padding, and the single-pair,
+batched and pair-indexed applies (port of particlesfm_tpu/flow/infer.py).
 
 Checkpoints carry a sidecar JSON with the model configuration, so the compact
 (in-environment-trained) variant and the full width load through one path.
+Inputs are edge-padded to a multiple of 8 and the flow cropped back; with
+scale < 1 the net runs on the padded frames resized to `scale` (rounded to a
+multiple of 8), and its flow is resized back and rescaled.
 """
 from __future__ import annotations
 
@@ -15,7 +18,44 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..io.checkpoint import load_msgpack, raft_state_dict_from_jax
+from ..models.depth import resize_bilinear
 from ..models.raft import RAFT, compact_raft
+
+
+def pad_to_multiple(img, mult: int = 8):
+    """Edge-pad one image [H, W, C] (numpy or tensor) to multiples of
+    `mult`; returns (padded, (H, W))."""
+    H, W = img.shape[0], img.shape[1]
+    ph, pw = (-H) % mult, (-W) % mult
+    if ph == 0 and pw == 0:
+        return img, (H, W)
+    if torch.is_tensor(img):
+        return _pad8(img[None], ph, pw)[0], (H, W)
+    return np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge"), (H, W)
+
+
+def _pad8(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge-pad a batch [B, H, W, C] by ph rows and pw columns."""
+    return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate").permute(0, 2, 3, 1)
+
+
+def _resize_nhwc(x: torch.Tensor, size) -> torch.Tensor:
+    return resize_bilinear(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+
+
+def _net_flow(model, i1: torch.Tensor, i2: torch.Tensor, iters: int, scale: float):
+    """Flow [B, Hp, Wp, 2] of padded pairs [B, Hp, Wp, 3]. With scale != 1
+    the net sees the frames resized to (round(Hp*scale/8)*8,
+    round(Wp*scale/8)*8) (Python's round, half to even), and its flow is
+    resized back and scaled by [Wp/ws, Hp/hs]."""
+    if scale == 1.0:
+        return model(i1, i2, iters=iters)
+    Hp, Wp = i1.shape[1:3]
+    hs = int(round(Hp * scale / 8.0)) * 8
+    ws = int(round(Wp * scale / 8.0)) * 8
+    fl = model(_resize_nhwc(i1, (hs, ws)), _resize_nhwc(i2, (hs, ws)), iters=iters)
+    fl = _resize_nhwc(fl, (Hp, Wp))
+    return fl * torch.tensor([Wp / ws, Hp / hs], dtype=fl.dtype, device=fl.device)
 
 
 def model_from_meta(meta: dict) -> RAFT:
@@ -41,6 +81,47 @@ def load_model(path, device) -> tuple:
     return model.to(device).eval(), meta
 
 
+def load_flow_apply(ckpt, iters: int = 12, device="cuda"):
+    """`apply(img1, img2) -> flow [H, W, 2]` (on `device`) for one pair of
+    images [H, W, 3] in [0, 255]. The GRU iteration count is the
+    checkpoint's recorded one when it has one, else `iters`."""
+    dev = resolve_device(device)
+    model, meta = load_model(ckpt, dev)
+    n_iters = int(meta.get("iters", iters))
+
+    @torch.inference_mode()
+    def apply(img1, img2):
+        img1 = torch.as_tensor(np.asarray(img1), dtype=torch.float32).to(dev)
+        img2 = torch.as_tensor(np.asarray(img2), dtype=torch.float32).to(dev)
+        p1, (H, W) = pad_to_multiple(img1)
+        p2, _ = pad_to_multiple(img2)
+        return model(p1[None], p2[None], iters=n_iters)[0, :H, :W]
+
+    return apply
+
+
+def load_flow_apply_batch(ckpt, iters=None, scale: float = 1.0, device="cuda"):
+    """`apply(img1s, img2s) -> flows [B, H, W, 2]` (on `device`) for a batch
+    of image pairs [B, H, W, 3] in [0, 255]. iters=None uses the checkpoint's
+    recorded count (default 12); scale < 1 runs the net at reduced
+    resolution (`_net_flow`)."""
+    dev = resolve_device(device)
+    model, meta = load_model(ckpt, dev)
+    n_iters = int(iters) if iters is not None else int(meta.get("iters", 12))
+
+    @torch.inference_mode()
+    def apply(img1s, img2s):
+        img1s = torch.as_tensor(np.asarray(img1s), dtype=torch.float32).to(dev)
+        img2s = torch.as_tensor(np.asarray(img2s), dtype=torch.float32).to(dev)
+        H, W = img1s.shape[1:3]
+        ph, pw = (-H) % 8, (-W) % 8
+        if ph or pw:
+            img1s, img2s = _pad8(img1s, ph, pw), _pad8(img2s, ph, pw)
+        return _net_flow(model, img1s, img2s, n_iters, scale)[:, :H, :W]
+
+    return apply
+
+
 def load_flow_apply_pairs(ckpt, iters=None, per_device: int = 8, scale: float = 1.0,
                           refine_schedule=None, refine_max_total: float = 3.0,
                           device="cuda"):
@@ -50,13 +131,11 @@ def load_flow_apply_pairs(ckpt, iters=None, per_device: int = 8, scale: float = 
     `stack` is the uint8 frame stack [T, H, W, 3] (tensor or numpy; moved to
     `device` once) and ia/ib are frame indices per pair. Pairs run in blocks
     of `per_device`; each block's correlation pyramid is freed before the
-    next block starts. With `refine_schedule` ((iters, sigma, radius) phases)
-    the photometric refinement runs right after the net on each block and the
-    returned apply carries `.refines = True`.
+    next block starts. scale < 1 runs the net at reduced resolution
+    (`_net_flow`). With `refine_schedule` ((iters, sigma, radius) phases)
+    the photometric refinement runs right after the net on each block, at
+    full resolution, and the returned apply carries `.refines = True`.
     """
-    if scale != 1.0:
-        raise NotImplementedError(
-            "flow.infer_scale != 1 (reduced-resolution flow) is not ported yet")
     dev = resolve_device(device)
     model, meta = load_model(ckpt, dev)
     n_iters = int(iters) if iters is not None else int(meta.get("iters", 12))
@@ -69,9 +148,8 @@ def load_flow_apply_pairs(ckpt, iters=None, per_device: int = 8, scale: float = 
         ph, pw = (-H) % 8, (-W) % 8
         i1, i2 = raw1, raw2
         if ph or pw:        # edge-pad to a multiple of 8 (infer.py:194-199)
-            i1, i2 = (F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate")
-                      .permute(0, 2, 3, 1) for x in (raw1, raw2))
-        fl = model(i1, i2, iters=n_iters)[:, :H, :W]
+            i1, i2 = _pad8(raw1, ph, pw), _pad8(raw2, ph, pw)
+        fl = _net_flow(model, i1, i2, n_iters, scale)[:, :H, :W]
         if refine_schedule:
             from .refine import photometric_refine_scheduled
 

@@ -1,19 +1,23 @@
-"""Global bundle adjustment: Levenberg-Marquardt with a dense Schur solve
-(port of particlesfm_tpu/globalsfm/ba.py, the dense solver the mapper uses).
+"""Global bundle adjustment: Levenberg-Marquardt with a Schur-complement
+solve (port of particlesfm_tpu/globalsfm/ba.py).
 
   - residuals/Jacobians: one batched pass over the padded observation tensor
     [N, K] (N tracks x K observation slots);
   - robustification: soft-L1 as IRLS weights (rho'(z) = 1/sqrt(1+z));
   - point elimination: per-track 3x3 Schur blocks, inverted in closed form;
   - reduced camera system (6V + 1 with the bordered shared focal): assembled
-    explicitly and solved by one dense LU solve;
+    explicitly and solved by one dense LU solve (solver="dense", what the
+    mappers use), or solved matrix-free by block-Jacobi-preconditioned CG
+    (solver="pcg");
   - gauge and constant rotations: per-parameter masks.
 
 Every per-camera sum is a product with the observations' one-hot camera
-matrix (the reference's V <= 192 path), so the reduced system sums in a
+matrix (the reference's V <= 192 path; the reference's PCG path scatters,
+the port keeps the products there too), so the reduced system sums in a
 fixed order on every device; no sum goes through a scatter-add, whose CUDA
 order is not deterministic. The LM loop runs on the host and reads the two
-costs back once per iteration for the accept and stop tests.
+costs back once per iteration for the accept and stop tests; the CG
+iterations read nothing back.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from ..geometry import rotations as rot
 from ..geometry import se3
-from ..ops.segment import segment_sum
+from ..ops.segment import segment_summer
 from .tracks3d import TrackObs
 
 _SCHUR_CHUNK = 8192     # tracks per chunk of the reduced-system assembly
@@ -147,15 +151,22 @@ def bundle_adjust(
     free_mask: torch.Tensor,    # [V, 6] 1.0 = free parameter
     point_mask: torch.Tensor,   # [N] 1.0 = optimize this track
     max_iterations: int = 30,
+    pcg_iters: int = 50,
     loss_scale: float = 1.0,
     use_soft_l1: bool = True,
     init_lam: float = 1e-4,
     refine_focal: bool = False,
+    solver: str = "dense",
     function_tolerance: float = 1e-6,
     focal_bounds: Optional[torch.Tensor] = None,   # [2] trust region for f
 ) -> BAState:
     """LM bundle adjustment; optionally solves the shared focal jointly (a
     bordered scalar column of the reduced system).
+
+    solver="dense" assembles the reduced camera system and solves it
+    exactly; solver="pcg" runs `pcg_iters` conjugate-gradient iterations on
+    it, matrix-free, preconditioned by the inverse camera diagonal blocks
+    (and 1/S_ff for the focal row).
 
     Stops after 2 consecutive accepted steps whose relative improvement is
     below `function_tolerance` (Ceres' function_tolerance), 24 consecutive
@@ -174,9 +185,11 @@ def bundle_adjust(
     eye3 = torch.eye(3, dtype=dt, device=dev)
     free_vec = torch.cat([fm.reshape(6 * V), torch.full((1,), f_free, dtype=dt, device=dev)])
 
+    cam_sum = segment_summer(fflat, V, dt)     # one-hot camera matrix, built once
+
     def per_cam(x):
         """Sum of per-observation values x [N, K, ...] into their cameras."""
-        return segment_sum(fflat, x.reshape((N * K,) + x.shape[2:]), V)
+        return cam_sum(x.reshape((N * K,) + x.shape[2:]))
 
     def reduced_system(Wcp, Hpp_inv):
         """-sum_n W_n Hpp_n^-1 W_n^T over tracks: the off-diagonal Schur part,
@@ -192,6 +205,50 @@ def bundle_adjust(
             GHm = GH.permute(1, 2, 0, 3).reshape(6 * V, 3 * C)
             S = S - GHm @ Gm.T
         return S
+
+    def pcg(dHcc, Wcp, Hpp_inv, S_cf, S_ff, rhs_c, rhs_f):
+        """`pcg_iters` block-Jacobi-preconditioned CG iterations on the
+        joint (camera, focal) reduced system, from zero."""
+        def schur_matvec(xc, xf):
+            xc = xc * fm
+            xf = xf * f_free
+            y = _mv(dHcc, xc)
+            u = _mv(Wcp.transpose(-1, -2), xc[fidx]).sum(1)       # [N, 3]
+            y = y - per_cam(_mv(Wcp, _mv(Hpp_inv, u)[:, None]))
+            y = y + S_cf * xf
+            yf = (S_cf * xc).sum() + S_ff * xf
+            return y * fm, yf * f_free
+
+        Minv = torch.linalg.inv(dHcc + 1e-8 * eye6)
+        Sff_inv = 1.0 / torch.clamp(S_ff, min=1e-12)
+
+        def precond(xc, xf):
+            return _mv(Minv, xc) * fm, xf * Sff_inv * f_free
+
+        def safe(d):
+            return torch.where(d.abs() < 1e-20, torch.full_like(d, 1e-20), d)
+
+        xc = torch.zeros(V, 6, dtype=dt, device=dev)
+        xf = torch.zeros((), dtype=dt, device=dev)
+        Ac, Af = schur_matvec(xc, xf)
+        rc, rf = rhs_c - Ac, rhs_f - Af
+        zc, zf = precond(rc, rf)
+        pc, pf = zc, zf
+        rz = (rc * zc).sum() + rf * zf
+        for _ in range(pcg_iters):
+            Apc, Apf = schur_matvec(pc, pf)
+            alpha = rz / safe((pc * Apc).sum() + pf * Apf)
+            xc = xc + alpha * pc
+            xf = xf + alpha * pf
+            rc = rc - alpha * Apc
+            rf = rf - alpha * Apf
+            zc, zf = precond(rc, rf)
+            rz_new = (rc * zc).sum() + rf * zf
+            beta = rz_new / safe(rz)
+            pc = zc + beta * pc
+            pf = zf + beta * pf
+            rz = rz_new
+        return xc, xf * f_free
 
     def lm_step(q, t, X, params, lam):
         w_obs, cost0 = _robust_weights(q, t, params, X, obs, loss_scale, use_soft_l1, pm)
@@ -221,17 +278,21 @@ def bundle_adjust(
         rhs_c = (-gc + per_cam(_mv(Wcp, hp[:, None]))) * fm
         rhs_f = (-gf + (Wfp * hp).sum()) * f_free
 
-        S = reduced_system(Wcp, Hpp_inv)
-        S = S + torch.block_diag(*dHcc)
-        Sfull = torch.cat([torch.cat([S, S_cf.reshape(6 * V, 1)], dim=1),
-                           torch.cat([S_cf.reshape(1, 6 * V), S_ff.reshape(1, 1)], dim=1)], dim=0)
-        rhs = torch.cat([rhs_c.reshape(6 * V), rhs_f.reshape(1)])
-        # gauge/constant parameters: identity rows/cols, zero rhs
-        Sfull = Sfull * free_vec[:, None] * free_vec[None, :] + torch.diag(1.0 - free_vec)
-        rhs = rhs * free_vec
-        sol = torch.linalg.solve_ex(Sfull, rhs[:, None])[0][:, 0]
-        dc = sol[:6 * V].reshape(V, 6)
-        df = sol[6 * V] * f_free
+        if solver == "dense":
+            S = reduced_system(Wcp, Hpp_inv)
+            S = S + torch.block_diag(*dHcc)
+            Sfull = torch.cat([torch.cat([S, S_cf.reshape(6 * V, 1)], dim=1),
+                               torch.cat([S_cf.reshape(1, 6 * V), S_ff.reshape(1, 1)], dim=1)],
+                              dim=0)
+            rhs = torch.cat([rhs_c.reshape(6 * V), rhs_f.reshape(1)])
+            # gauge/constant parameters: identity rows/cols, zero rhs
+            Sfull = Sfull * free_vec[:, None] * free_vec[None, :] + torch.diag(1.0 - free_vec)
+            rhs = rhs * free_vec
+            sol = torch.linalg.solve_ex(Sfull, rhs[:, None])[0][:, 0]
+            dc = sol[:6 * V].reshape(V, 6)
+            df = sol[6 * V] * f_free
+        else:
+            dc, df = pcg(dHcc, Wcp, Hpp_inv, S_cf, S_ff, rhs_c, rhs_f)
         if refine_focal and focal_bounds is not None:
             # focal trust region: clamp the step before back-substitution
             df = torch.clamp(params[0] + df, focal_bounds[0], focal_bounds[1]) - params[0]

@@ -1,9 +1,13 @@
-"""Forward/backward flow consistency (port of particlesfm_tpu/ops/flow_ops.py:20-51).
+"""Dense flow ops: forward/backward consistency, composition, the stride-2
+composition fallback and motion boundaries (port of
+particlesfm_tpu/ops/flow_ops.py).
 
 Behavioral contract from upstream ParticleSfM's point_trajectory/utils.py:
 - backward_warp: sample the backward flow map at pixel + forward flow (71-86);
 - occlusion: err = ||warp(flow_b) + flow_f||, occluded if err > thres OR the
-  target leaves the image (88-105, get_oob_mask at 60-68).
+  target leaves the image (88-105, get_oob_mask at 60-68);
+- motion_boundary: flow-gradient magnitude > thres * ||flow||
+  (trajectory.py:39-43).
 All ops take a stack [T, H, W, 2] (or one field [H, W, 2]).
 """
 from __future__ import annotations
@@ -49,3 +53,39 @@ def occlusion_mask(flow_f: torch.Tensor, flow_b: torch.Tensor, thres: float):
 def flow_check(flows_f: torch.Tensor, flows_b: torch.Tensor, thres: float):
     """Occlusion check over [T, H, W, 2] stacks. Returns (occ [T,H,W], err)."""
     return occlusion_mask(flows_f, flows_b, thres)
+
+
+def compose_flow(flow_ab: torch.Tensor, flow_bc: torch.Tensor):
+    """Chain two flow fields: out(p) = flow_ab(p) + flow_bc(p + flow_ab(p)).
+
+    Returns (composed [..., H, W, 2], valid [..., H, W] bool): valid is False
+    where the intermediate lookup left the image. The lookup is the
+    four-corner sample that fades to zero past the edge."""
+    H, W = flow_ab.shape[-3:-1]
+    mid = grid_coords(H, W, flow_ab.dtype, flow_ab.device) + flow_ab
+    valid = ((mid[..., 0] >= 0) & (mid[..., 0] <= W - 1)
+             & (mid[..., 1] >= 0) & (mid[..., 1] <= H - 1))
+    return flow_ab + bilinear_sample(flow_bc, mid), valid
+
+
+def stride2_compose_fallback(flow2: torch.Tensor, flow1_a: torch.Tensor,
+                             flow1_b: torch.Tensor, disagree_px: float = 4.0):
+    """Replace the net's stride-2 flow (pair i: i -> i+2) with the composition
+    of its two stride-1 hops (i -> i+1, i+1 -> i+2) where the two disagree
+    by more than `disagree_px` and the composition is defined.
+
+    Returns (blended [N, H, W, 2], used [N, H, W] bool)."""
+    comp, valid = compose_flow(flow1_a, flow1_b)
+    use = (_norm(flow2 - comp) > disagree_px) & valid
+    return torch.where(use[..., None], comp, flow2), use
+
+
+def motion_boundary(flow: torch.Tensor, thres: float = 0.02) -> torch.Tensor:
+    """Motion-boundary mask [H, W] of one field [H, W, 2]: forward-difference
+    gradient magnitude against thres * ||flow||."""
+    dx = torch.zeros_like(flow)
+    dy = torch.zeros_like(flow)
+    dx[:, :-1] = (flow[:, :-1] - flow[:, 1:]).abs()
+    dy[:-1] = (flow[:-1] - flow[1:]).abs()
+    grad = torch.sqrt(dx.mean(-1) ** 2 + dy.mean(-1) ** 2)
+    return (grad > thres * _norm(flow)).to(flow.dtype)

@@ -14,16 +14,25 @@ import torch
 _CHUNK_ROWS = 1 << 20
 
 
+def segment_summer(idx: torch.Tensor, num: int, dtype):
+    """`segment_sum` over a fixed idx [M]: the one-hot matrices are built
+    once, and the returned function sums any values [M, ...] of `dtype`."""
+    onehots = [torch.nn.functional.one_hot(idx[s:s + _CHUNK_ROWS], num).to(dtype).T
+               for s in range(0, idx.shape[0], _CHUNK_ROWS)]
+
+    def summed(values: torch.Tensor) -> torch.Tensor:
+        flat = values.reshape(idx.shape[0], -1)
+        out = torch.zeros(num, flat.shape[1], dtype=dtype, device=values.device)
+        for c, oh in enumerate(onehots):
+            out = out + oh @ flat[c * _CHUNK_ROWS:(c + 1) * _CHUNK_ROWS]
+        return out.reshape((num,) + values.shape[1:])
+    return summed
+
+
 def segment_sum(idx: torch.Tensor, values: torch.Tensor, num: int) -> torch.Tensor:
     """out[s] = sum of values[m] over m with idx[m] == s. idx [M] int,
     values [M, ...]; returns [num, ...]."""
-    M = idx.shape[0]
-    flat = values.reshape(M, -1)
-    out = torch.zeros(num, flat.shape[1], dtype=values.dtype, device=values.device)
-    for s in range(0, M, _CHUNK_ROWS):
-        oh = torch.nn.functional.one_hot(idx[s:s + _CHUNK_ROWS], num).to(values.dtype)
-        out = out + oh.T @ flat[s:s + _CHUNK_ROWS]
-    return out.reshape((num,) + values.shape[1:])
+    return segment_summer(idx, num, values.dtype)(values)
 
 
 def row_segment_sum(idx: torch.Tensor, w: torch.Tensor, num: int) -> torch.Tensor:

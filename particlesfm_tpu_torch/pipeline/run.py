@@ -5,10 +5,8 @@ images subfolder, --root_dir looping over sequences), same stage toggles and
 hyperparameter defaults, same config tree and `--set` overrides, same output
 layout — so either package's stages can pick up the other's outputs. The
 port runs flow (with self-calibration), trajectories, depth, motion
-segmentation and global SfM; a config that asks for an option it does not
-have yet (incremental SfM, linear or nonlinear positions, the stride-2
-composition fallback) raises NotImplementedError. Runs on CUDA unless
-`--device cpu` is given.
+segmentation and SfM (global, glomap-mode or incremental), with every option
+the JAX CLI accepts. Runs on CUDA unless `--device cpu` is given.
 
 Usage:
     python -m particlesfm_tpu_torch.pipeline.run --image_dir IMG --output_dir OUT
@@ -201,7 +199,6 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
     """Run the staged pipeline on one sequence; returns the Reconstruction
     (or, with --skip_sfm, the TrackArrays, labeled unless the scene is
     taken as static)."""
-    stages.require_ported(cfg)
     dev = resolve_device(device)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)

@@ -1,12 +1,13 @@
 """Pipeline stages with the reference's on-disk contracts + skip-exists restart
 (port of particlesfm_tpu/pipeline/stages.py).
 
-The port runs the flow stage (pair-indexed RAFT with fused photometric
-refinement, then flow self-calibration -> selfcal.json), the trajectory
-stage (occlusion checks, slot-pool tracker with path-consistency LM), the
-depth and motion-segmentation stages, and the global SfM stage (COLMAP
-model, converted outputs, stats). Options the port does not have yet raise
-NotImplementedError (`require_ported`) instead of being skipped.
+The flow stage runs pair-indexed RAFT (optionally at reduced resolution)
+with photometric refinement fused into the apply or as a standalone pass,
+the stride-2 composition fallback, and flow self-calibration ->
+selfcal.json; then the trajectory stage (occlusion checks, slot-pool
+tracker with path-consistency LM), the depth and motion-segmentation
+stages, and the SfM stage (global mapper, reconstruction manager or
+incremental mapper -> COLMAP model, converted outputs, stats).
 """
 from __future__ import annotations
 
@@ -18,37 +19,21 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..flow.refine import photometric_refine_scheduled
 from ..globalsfm.selfcal import estimate_focal_from_flows
 from ..io import flo as flo_io
 from ..io.images import read_depth_png16, write_depth_png16
 from ..motionseg import segment_tracks
-from ..ops.flow_ops import flow_check
+from ..ops.flow_ops import flow_check, stride2_compose_fallback
 from ..tracks.engine import TrackerConfig, run_tracker
 from ..tracks.store import TrackArrays, assemble_tracks
 from ..geometry import cameras
 from ..sfm.export import write_colmap_model, write_converted_outputs
+from ..sfm.incremental import run_incremental_mapper
 from ..sfm.manager import run_reconstruction_manager, write_models
 from ..sfm.mapper import _failed, run_global_mapper
 from ..sfm.stats import compute_model_stats, format_model_stats
 from ..utils.config import Config
-
-
-def require_ported(cfg: Config) -> None:
-    """Raise NotImplementedError naming every option `cfg` asks for that the
-    port does not have yet."""
-    missing = []
-    if cfg.flow.stride2_compose_disagree_px > 0:
-        missing.append("stride-2 composition fallback "
-                       "(flow.stride2_compose_disagree_px > 0)")
-    if not cfg.skip_sfm:
-        if cfg.sfm.sfm_type == "incremental":
-            missing.append("incremental SfM (sfm_type=incremental)")
-        if cfg.sfm.position.method in ("linear", "nonlinear"):
-            missing.append(f"{cfg.sfm.position.method} position estimation "
-                           f"(sfm.position.method={cfg.sfm.position.method})")
-    if missing:
-        raise NotImplementedError(
-            "particlesfm_tpu_torch does not port these stages yet: " + "; ".join(missing))
 
 
 class MissingDepthError(RuntimeError):
@@ -137,7 +122,6 @@ def flow_stage(
     reference's RAFT-stage contract). Existing complete .flo directories are
     reused under --skip_exists.
     """
-    require_ported(cfg)
     T = images.shape[0]
     use_pc = not cfg.track.skip_path_consistency
     dirs = {"flow_f": 1, "flow_b": -1}
@@ -168,10 +152,6 @@ def flow_stage(
         raise RuntimeError(
             f"flow stage: no precomputed flow at {flow_root} and no RAFT "
             "weights provided (pass --raft_ckpt or precompute flow)")
-    if cfg.flow.photometric_refine and not getattr(raft_apply, "refines", False):
-        raise NotImplementedError(
-            "flow stage: photometric refinement outside the flow apply is not "
-            "ported; use flow.infer.load_flow_apply_pairs(refine_schedule=...)")
     if callable(device_stack):
         device_stack = device_stack()
     if device_stack is None:        # the apply moves the stack to its device
@@ -191,9 +171,23 @@ def flow_stage(
     for name, stride, d, npairs in todo:
         result[name] = flows_all[off:off + npairs]
         off += npairs
+    computed = {t[0] for t in todo}
     if cfg.flow.photometric_refine:
-        log(f"[flow] photometric refinement fused into inference "
-            f"(schedule {cfg.flow.refine_schedule})")
+        reused = [n for n in result if n not in computed]
+        if reused:
+            log(f"[flow] NOTE: flow reused from disk ({', '.join(reused)}) bypasses "
+                "photometric refinement (external flow respected as-is)")
+        if getattr(raft_apply, "refines", False):
+            log(f"[flow] photometric refinement fused into inference "
+                f"(schedule {cfg.flow.refine_schedule})")
+        else:
+            stack = device_stack.to(flows_all.device)
+            for (name, stride, d, npairs), ia, ib in zip(todo, ia_all, ib_all):
+                result[name] = _refine_standalone(stack, ia, ib, result[name], cfg)
+                log(f"[flow] {name}: photometric refinement "
+                    f"(schedule {cfg.flow.refine_schedule})")
+    if cfg.flow.stride2_compose_disagree_px > 0 and use_pc:
+        _stride2_fallback(result, computed, cfg.flow.stride2_compose_disagree_px, log)
 
     _write_flow_selfcal(result, images.shape[1], images.shape[2], out_dir, cfg, log)
     # .flo contract writes only when the files outlive the run; f16 on the
@@ -208,6 +202,46 @@ def flow_stage(
             flo_io.write_flo(d / f"{i:06d}.flo", host[i])
         log(f"[flow] {name}: computed {npairs} pairs (batched)")
     return result
+
+
+def _refine_standalone(stack, ia, ib, flows, cfg, block: int = 8):
+    """Photometric refinement of freshly computed flows outside the flow
+    apply: pairs in blocks of `block`, the tail block padded with repeats
+    of its last pair (stages.py:212-242 of the reference)."""
+    def frames(idx):
+        return stack[torch.as_tensor(idx, device=stack.device)].to(torch.float32) / 255.0
+
+    out = []
+    for s in range(0, len(ia), block):
+        a, b, f0 = ia[s:s + block], ib[s:s + block], flows[s:s + block]
+        pad = block - len(a)
+        if pad:
+            a = np.concatenate([a, np.repeat(a[-1:], pad)])
+            b = np.concatenate([b, np.repeat(b[-1:], pad)])
+            f0 = torch.cat([f0, f0[-1:].expand(pad, *f0.shape[1:])])
+        ref = photometric_refine_scheduled(
+            frames(a), frames(b), f0, schedule=cfg.flow.refine_schedule,
+            max_total=cfg.flow.refine_max_total_px)
+        out.append(ref[:block - pad])
+    return torch.cat(out)
+
+
+def _stride2_fallback(result: dict, computed, tau: float, log):
+    """The stride-2 safety net (FlowConfig.stride2_compose_disagree_px): each
+    freshly computed stride-2 field falls back to the composition of its two
+    stride-1 hops where they disagree by more than `tau` px. Flow read from
+    disk is respected as-is. The blended fields stay on their device."""
+    for name2, hop in (("flow_f2", "flow_f"), ("flow_b2", "flow_b")):
+        if name2 not in computed or hop not in result:
+            continue
+        f1 = result[hop]
+        # forward pair i: i -> i+1 -> i+2; backward pair i: i+2 -> i+1 -> i
+        a, b = (f1[:-1], f1[1:]) if name2 == "flow_f2" else (f1[1:], f1[:-1])
+        blended, used = stride2_compose_fallback(result[name2], a, b, disagree_px=tau)
+        frac = float(used.to(torch.float32).mean())
+        if frac > 0:
+            log(f"[flow] {name2}: composed-stride-1 fallback on {100 * frac:.1f}% of pixels")
+        result[name2] = blended
 
 
 def tracking_stage(
@@ -346,9 +380,12 @@ def sfm_stage(
     image_names=None,
     log=print,
 ):
-    """Global SfM -> sfm/model (COLMAP bins), colmap_outputs_converted/ and
-    sfm/stats.txt. The focal prior is the flow stage's selfcal.json when it
-    is trustworthy. The mapper runs on `device`."""
+    """SfM -> sfm/model (COLMAP bins), colmap_outputs_converted/ and
+    sfm/stats.txt. sfm_type "incremental" runs the incremental mapper and
+    writes one model; otherwise the global mapper runs, through the
+    reconstruction manager unless multiple_models is off. The focal prior is
+    the flow stage's selfcal.json when it is trustworthy. The mappers run on
+    `device`."""
     model_dir = Path(out_dir) / "sfm" / "model"
     if cfg.skip_exists and (model_dir / "images.bin").exists():
         log("[sfm] reusing existing model")
@@ -362,7 +399,12 @@ def sfm_stage(
         log(f"[sfm] focal prior from flow self-calibration: {f_cal:.1f} "
             f"(heuristic {params[0]:.1f}, BA trust region +-{bound_frac:.0%})")
         params[0] = params[1] = f_cal
-    if cfg.sfm.multiple_models:
+    if cfg.sfm.sfm_type == "incremental":
+        # the reference's incremental mode runs one model (multiple_models=0)
+        rec = run_incremental_mapper(tracks, height, width, cfg.sfm, params=params, log=log,
+                                     device=device)
+        write_colmap_model(rec, model_dir, image_names)
+    elif cfg.sfm.multiple_models:
         models = run_reconstruction_manager(
             tracks, height, width, cfg.sfm, max_models=cfg.sfm.max_models,
             params=params, log=log, focal_bound_frac=bound_frac, device=device)

@@ -1,6 +1,6 @@
-"""Reconstruction export: COLMAP-format model + converted depth/pose/intrinsics
-(port of particlesfm_tpu/sfm/export.py:1-229; the nvm, bundler and vrml
-writers are not ported).
+"""Reconstruction export: COLMAP-format model + converted depth/pose/intrinsics,
+and the legacy NVM, Bundler and VRML writers (port of
+particlesfm_tpu/sfm/export.py).
 
 Mirrors the reference's output contracts:
   - COLMAP sparse model bins (written by gmapper via Reconstruction::Write,
@@ -14,7 +14,9 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..geometry import rotations as rot, se3
 from ..io import colmap_model as cm
 from .mapper import Reconstruction
 
@@ -228,3 +230,75 @@ def write_converted_outputs(
             ok = (z > 0) & (u >= 0) & (u < rec.width) & (v >= 0) & (v < rec.height)
             depth[v[ok], u[ok]] = z[ok]
         np.save(out / "depths" / f"{stems[i]}.npy", depth)
+
+
+def write_nvm(path, rec: Reconstruction, image_names=None) -> None:
+    """VisualSFM NVM export (reconstruction.cc:918-1040 parity): shared-focal
+    header, per-image <name> <f> <qw qx qy qz> <cx cy cz> 0 0, then points."""
+    if image_names is None:
+        image_names = [f"{i:06d}.png" for i in range(rec.num_images)]
+    f = float(rec.params[0])
+    reg = np.nonzero(rec.registered)[0]
+    centers = se3.camera_center(torch.as_tensor(rec.qvec), torch.as_tensor(rec.tvec)).numpy()
+    lines = ["NVM_V3", "", str(len(reg))]
+    img_order = {int(i): k for k, i in enumerate(reg)}
+    for i in reg:
+        q = rec.qvec[i]
+        c = centers[i]
+        lines.append(f"{image_names[i]} {f} {q[0]} {q[1]} {q[2]} {q[3]} {c[0]} {c[1]} {c[2]} 0 0")
+    valid = np.nonzero(rec.track_valid)[0]
+    lines += ["", str(len(valid))]
+    for n in valid:
+        x = rec.points[n]
+        obs = _track_obs(rec, n, img_order)
+        lines.append(f"{x[0]} {x[1]} {x[2]} 128 128 128 {len(obs)} " + " ".join(obs))
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def write_bundler(path, rec: Reconstruction) -> None:
+    """Bundler .out export (reconstruction.cc:1042-1140 parity)."""
+    reg = np.nonzero(rec.registered)[0]
+    valid = np.nonzero(rec.track_valid)[0]
+    f = float(rec.params[0])
+    lines = ["# Bundle file v0.3", f"{len(reg)} {len(valid)}"]
+    # Bundler convention: y up, z towards the viewer -> flip rows 1, 2 of [R|t]
+    flip = np.diag([1.0, -1.0, -1.0])
+    img_order = {int(i): k for k, i in enumerate(reg)}
+    for i in reg:
+        R = rot.quat_to_rotmat(torch.as_tensor(rec.qvec[i], dtype=torch.float32)).numpy()
+        Rb = flip @ R
+        tb = flip @ rec.tvec[i]
+        lines.append(f"{f} 0 0")
+        for row in Rb:
+            lines.append(f"{row[0]} {row[1]} {row[2]}")
+        lines.append(f"{tb[0]} {tb[1]} {tb[2]}")
+    for n in valid:
+        x = rec.points[n]
+        lines += [f"{x[0]} {x[1]} {x[2]}", "128 128 128"]
+        obs = _track_obs(rec, n, img_order)
+        lines.append(f"{len(obs)} " + " ".join(obs))
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def _track_obs(rec: Reconstruction, n: int, img_order: dict) -> list:
+    """'<image order> 0 <u> <v>' of track n's kept observations in registered images."""
+    obs = []
+    for k in np.nonzero(rec.obs_mask[n])[0]:
+        img = int(rec.obs_frame_idx[n, k])
+        if img in img_order:
+            u, v = rec.obs_uv[n, k]
+            obs.append(f"{img_order[img]} 0 {u} {v}")
+    return obs
+
+
+def write_vrml(path, rec: Reconstruction, colors=None) -> None:
+    """Minimal VRML 2.0 point-cloud export (reconstruction.cc:1142-1219 parity)."""
+    pts = rec.points[rec.track_valid]
+    cols = (colors[rec.track_valid] / 255.0 if colors is not None
+            else np.full((len(pts), 3), 0.8))
+    lines = ["#VRML V2.0 utf8", "Shape { geometry PointSet {", "coord Coordinate { point ["]
+    lines += [f"{p[0]} {p[1]} {p[2]}," for p in pts]
+    lines += ["] }", "color Color { color ["]
+    lines += [f"{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}," for c in cols]
+    lines += ["] } } }"]
+    Path(path).write_text("\n".join(lines) + "\n")

@@ -25,6 +25,8 @@ import torch
 from .. import resolve_device
 from ..geometry import cameras, epipolar, rotations as rot, se3
 from ..globalsfm.ba import bundle_adjust, default_free_masks
+from ..globalsfm.linear_position import estimate_positions_linear
+from ..globalsfm.nonlinear_position import refine_positions_nonlinear
 from ..globalsfm.pnp import estimate_pose_pnp
 from ..globalsfm.rotation_averaging import average_rotations
 from ..globalsfm.tracks3d import TrackObs, filter_observations, triangulate_tracks
@@ -118,9 +120,6 @@ def run_global_mapper(
     """
     cfg = cfg or SfmConfig()
     dev = resolve_device(device)
-    if cfg.position.method in ("linear", "nonlinear"):
-        raise NotImplementedError(
-            f"particlesfm_tpu_torch does not port position.method={cfg.position.method!r} yet")
     rec = _mapper_with_retries(tracks, height, width, cfg, params, log, focal_bound_frac, dev)
     e1 = _kept_err(rec)
     if (cfg.multi_start_err_px > 0 and cfg.pre_orientation_filter_deg == 0
@@ -544,8 +543,9 @@ def _run_global_mapper_once(tracks, height, width, cfg, params, log, dev,
 
 
 def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reconstruction:
-    """Positioning back-end (glomap bearings or the LUD path) + shared
-    refinement, from the front-end products in `fe`."""
+    """Positioning back-end (glomap bearings, or LUD or linear positions with
+    the optional nonlinear refinement) + shared refinement, from the
+    front-end products in `fe`."""
     params, focal, focal_bounds = fe["params"], fe["focal"], fe["focal_bounds"]
     obs, obs_t = fe["obs"], fe["obs_t"]
     N, V = fe["N"], fe["V"]
@@ -624,7 +624,8 @@ def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reco
     w_mp = torch.cat([w_m, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(em_pad, 3)])
     emask_m = torch.cat([torch.ones(Em, device=dev), torch.zeros(em_pad, device=dev)])
     trip_constraints = None
-    if cfg.position.use_scale_constraints:
+    tris = np.zeros((0, 3), np.int32)
+    if cfg.position.use_scale_constraints or cfg.position.method == "linear":
         tris = extract_triplets(spairs_m)
         if len(tris) > 2048:  # dense view graphs: cap the constraint set
             sel = np.random.default_rng(cfg.seed).choice(len(tris), 2048, replace=False)
@@ -649,10 +650,23 @@ def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reco
             nz = int((trip_constraints.weight > 0).sum())
             log(f"[mapper] {len(tris)} triplets, {nz} active scale constraints")
 
-    p_est, _, lud_info = estimate_positions_lud(V, T(spairs_mp, torch.int64), w_mp, emask_m,
-                                                triplets=trip_constraints)
-    log(f"[mapper] LUD ADMM: {lud_info['iters']} iters, "
-        f"primal {lud_info['r_primal']:.2e} dual {lud_info['r_dual']:.2e}")
+    # ---- positions: LUD (default) or linear-spectral, when triplets exist
+    if cfg.position.method == "linear" and trip_constraints is not None:
+        # padded triplet rows carry weight 0 and add empty row blocks
+        p_est = estimate_positions_linear(V, T(spairs_mp, torch.int64), w_mp,
+                                          T(tris_p, torch.int64), trip_constraints)
+        log("[mapper] linear (spectral) position estimation done")
+    else:
+        p_est, _, lud_info = estimate_positions_lud(V, T(spairs_mp, torch.int64), w_mp, emask_m,
+                                                    triplets=trip_constraints)
+        log(f"[mapper] LUD ADMM: {lud_info['iters']} iters, "
+            f"primal {lud_info['r_primal']:.2e} dual {lud_info['r_dual']:.2e}")
+    if cfg.position.method == "nonlinear":
+        # 1DSfM chordal refinement on top of the LUD solution, over the
+        # unpadded edges
+        p_est = refine_positions_nonlinear(V, T(spairs_m, torch.int64), w_m,
+                                           torch.ones(len(spairs_m), device=dev), p_est)
+        log("[mapper] nonlinear position refinement done")
     q_est = rot.rotmat_to_quat(R_abs)
     t_est = se3.pose_from_center(q_est, p_est)  # register: t = -R p
     return _refine_and_finish(tracks, cfg, params, height, width, num_images, sub, full2sub,

@@ -48,6 +48,37 @@ class TrackArrays:
             labels=data["labels"] if "labels" in data.files else None,
         )
 
+    def to_reference_dict(self) -> dict:
+        """The reference's labeled track.npy dict
+        {row: {"locations" [L,2] f64, "frame_ids" [L] i64, "labels" [L] i64}}."""
+        out = {}
+        for i in range(self.num_tracks):
+            t = np.nonzero(self.mask[i])[0]
+            out[i] = {
+                "locations": self.xy[i, t].astype(np.float64),
+                "frame_ids": t.astype(np.int64),
+                "labels": (self.labels[i, t].astype(np.int64) if self.labels is not None
+                           else np.zeros(len(t), np.int64)),
+            }
+        return out
+
+    @classmethod
+    def from_reference_dict(cls, d: dict, num_frames: Optional[int] = None) -> "TrackArrays":
+        """Padded arrays from the reference's dict, rows in track-id order."""
+        n = len(d)
+        if num_frames is None:
+            num_frames = 1 + max(int(np.max(v["frame_ids"])) for v in d.values())
+        xy = np.zeros((n, num_frames, 2), np.float32)
+        mask = np.zeros((n, num_frames), bool)
+        labels = np.zeros((n, num_frames), np.int8)
+        for row, (_, v) in enumerate(sorted(d.items())):
+            t = np.asarray(v["frame_ids"], np.int64)
+            xy[row, t] = np.asarray(v["locations"], np.float32)
+            mask[row, t] = True
+            if "labels" in v:
+                labels[row, t] = np.asarray(v["labels"], np.int8)
+        return cls(xy=xy, mask=mask, labels=labels)
+
 
 def assemble_tracks(out: TrackerOutput, min_len: int = 3) -> TrackArrays:
     """Reassemble the tracker's per-frame slot emissions into padded track

@@ -24,7 +24,15 @@ the seg stage's model input (u16 tracks) with the card's logits. Prints:
   package again with the track coordinates scaled by 1 + 2^-22 (its own
   movement under rounding), and the mapper's first two-view RANSAC of both
   packages on the subset's pair tensors with the reference's draws, also
-  under that scaling.
+  under that scaling;
+- [sfm-modes] the same for the incremental mapper and for linear and
+  nonlinear positions: JAX's and the port's (CPU) sfm_stage on the subset
+  against the card's poses on it (registered sets, Sim3 ATE against the
+  renderer and between the pose sets, focal);
+- [sfm-pnp] the incremental run's last PnP call (the round where every
+  candidate failed) on the card's inputs: inlier counts of the card, the
+  port on the CPU and JAX with the same key, and where in the image its
+  2D points lie.
 """
 from __future__ import annotations
 
@@ -172,6 +180,90 @@ def compare_sfm(z, dump_dir: Path) -> None:
               f"max |diff| {d.max()}, mean |diff| {d.mean():.3f}")
 
 
+def compare_sfm_modes(z, dump_dir: Path) -> None:
+    import shutil
+    import tempfile
+
+    from particlesfm_tpu.pipeline.stages import sfm_stage as jsfm_stage
+    from particlesfm_tpu.tracks.store import TrackArrays as JTracks
+    from particlesfm_tpu.utils.config import Config as JConfig
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.pipeline.stages import sfm_stage
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+    from particlesfm_tpu_torch.utils.config import Config
+
+    tr = TrackArrays.load(dump_dir / "tracks.npz")
+    H, W = (int(v) for v in z["sfm_hw"])
+    gt_c = _centers_w2c(z["sfm_gt_w2c"])
+    T = len(gt_c)
+    names = [f"{i:06d}.ppm" for i in range(T)]
+
+    def config(cls, mode):
+        cfg = cls()
+        if mode == "incremental":
+            cfg.sfm.sfm_type = "incremental"
+        else:
+            cfg.sfm.position.method = mode
+        return cfg
+
+    for mode in ("incremental", "linear", "nonlinear"):
+        if f"sfm_sub_{mode}_qvec" not in z.files:
+            continue
+        sets = {"card": (z[f"sfm_sub_{mode}_registered"],
+                         _centers(z[f"sfm_sub_{mode}_qvec"], z[f"sfm_sub_{mode}_tvec"]),
+                         float(z[f"sfm_sub_{mode}_params"][0]))}
+        for pkg in ("JAX", "port (CPU)"):
+            with tempfile.TemporaryDirectory() as tmp:
+                shutil.copy(dump_dir / "selfcal.json", Path(tmp) / "selfcal.json")
+                if pkg == "JAX":
+                    rec = jsfm_stage(JTracks(tr.xy, tr.mask, tr.labels), H, W, Path(tmp),
+                                     config(JConfig, mode), names, log=lambda *a: None)
+                else:
+                    rec = sfm_stage(tr, H, W, Path(tmp), config(Config, mode), "cpu", names,
+                                    log=lambda *a: None)
+            sets[pkg] = (rec.registered, _centers(rec.qvec, rec.tvec), float(rec.params[0]))
+        for name, (reg, c, f) in sets.items():
+            print(f"[sfm-modes] {mode}, {name}: {int(reg.sum())}/{T} registered, Sim3 ATE "
+                  f"against the renderer {ate_rmse(c[reg], gt_c[reg]):.5f}, focal {f:.2f} px")
+        for a, b in (("JAX", "card"), ("JAX", "port (CPU)"), ("port (CPU)", "card")):
+            (ra, ca, _), (rb, cb, _) = sets[a], sets[b]
+            both = ra & rb
+            print(f"[sfm-modes] {mode}, {a} vs {b}: same registered set "
+                  f"{bool((ra == rb).all())}, Sim3 ATE between the pose sets "
+                  f"{ate_rmse(ca[both], cb[both]):.3e}")
+
+
+def compare_pnp(z) -> None:
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from particlesfm_tpu.globalsfm.pnp import estimate_pose_pnp as jpnp
+    from particlesfm_tpu_torch.globalsfm.pnp import estimate_pose_pnp
+    from particlesfm_tpu_torch.globalsfm.twoview import threefry_key, threefry_uniform
+    from particlesfm_tpu_torch.utils.config import SfmConfig
+
+    seed = SfmConfig().seed
+    X, x, m, u = z["inc_pnp_X"], z["inc_pnp_x"], z["inc_pnp_mask"], z["inc_pnp_u"]
+    thr = float(z["inc_pnp_thres"])
+    img = next(i for i in range(len(z["sfm_gt_w2c"]))
+               if np.array_equal(threefry_uniform(threefry_key(seed + i), u.shape), u))
+    port = int(estimate_pose_pnp(torch.from_numpy(X), torch.from_numpy(x), torch.from_numpy(m),
+                                 thr, u=torch.from_numpy(u)).num_inliers)
+    jax_n = int(jpnp(jax.random.PRNGKey(seed + img), jnp.asarray(X), jnp.asarray(x),
+                     jnp.asarray(m), jnp.asarray(np.float32(thr))).num_inliers)
+    f = float(z["inc_params"][0])
+    H, W = (int(v) for v in z["sfm_hw"])
+    uv = x[m] * f + np.float32([W / 2.0, H / 2.0])
+    depth = np.linalg.norm(X[m], axis=1)
+    print(f"[sfm-pnp] the incremental run's last PnP (image {img}, {int(m.sum())} 2D-3D pairs, "
+          f"the first in track order): inliers card {int(z['inc_pnp_inliers'])}, port (CPU) "
+          f"{port}, JAX {jax_n}; its 2D points span u {uv[:, 0].min():.0f}..{uv[:, 0].max():.0f}, "
+          f"v {uv[:, 1].min():.0f}..{uv[:, 1].max():.0f} px of {W}x{H}; distance of its 3D "
+          f"points from the seed camera: median {np.median(depth):.3f}, "
+          f"5-95% {np.percentile(depth, 5):.3f}..{np.percentile(depth, 95):.3f}")
+
+
 def _centers_w2c(w2c) -> np.ndarray:
     R, t = w2c[:, :, :3], w2c[:, :, 3]
     return -np.einsum("nji,nj->ni", R, t)
@@ -216,6 +308,9 @@ def main(argv=None) -> int:
               f"{(lg[real] > 0).mean():.4f} (card) / {(lg_j[real] > 0).mean():.4f} (JAX)")
     if "sfm_qvec" in z.files:
         compare_sfm(z, Path(args.dump).parent)
+        compare_sfm_modes(z, Path(args.dump).parent)
+    if "inc_pnp_X" in z.files:
+        compare_pnp(z)
     return 0
 
 

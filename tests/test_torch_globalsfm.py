@@ -413,6 +413,45 @@ def test_bundle_adjust_matches_jax(scene, refine_focal):
     np.testing.assert_allclose(_n(fp), np.asarray(fj), rtol=1e-5)
 
 
+
+@pytest.mark.parametrize("refine_focal", [False, True])
+def test_bundle_adjust_pcg_matches_jax(scene, refine_focal):
+    """The matrix-free Schur PCG solver (solver="pcg", 50 CG iterations per
+    LM step, block-Jacobi preconditioned) from the same perturbed start as
+    the dense test: final cost within 1e-4 relative of JAX's PCG, poses
+    within 1e-4, focal within 1e-4 relative; and within 1e-3 relative of the
+    port's dense solve."""
+    sc = scene["sc"]
+    o = _obs(sc)
+    rng = np.random.default_rng(3)
+    V = len(sc["q"])
+    q = np.asarray(jrot.quat_normalize(jnp.asarray(
+        sc["q"] + 0.003 * rng.normal(size=sc["q"].shape), jnp.float32)))
+    t = (sc["t"] + 0.02 * rng.normal(size=sc["t"].shape)).astype(np.float32)
+    p = sc["params"].copy()
+    if refine_focal:
+        p[:2] *= 1.05
+    X = (sc["X"][np.asarray(o.track_row)] + 0.02 * rng.normal(size=(len(o.track_row), 3))
+         ).astype(np.float32)
+    pm = np.ones(len(X), np.float32)
+    anchor = (0, V - 1, 0)
+    kw = dict(max_iterations=50, pcg_iters=50, loss_scale=1.0, use_soft_l1=True,
+              refine_focal=refine_focal, function_tolerance=1e-6)
+    jo = jt3.TrackObs(jnp.asarray(o.frame_idx), jnp.asarray(o.uv), jnp.asarray(o.mask))
+    sj = jba.bundle_adjust(jnp.asarray(q), jnp.asarray(t), jnp.asarray(p), jnp.asarray(X), jo,
+                           jba.default_free_masks(V, True, anchor), jnp.asarray(pm),
+                           solver="pcg", **kw)
+    po = t3.TrackObs(_t(o.frame_idx, torch.int64), _t(o.uv), _t(o.mask))
+    free = ba.default_free_masks(V, True, anchor)
+    sp = ba.bundle_adjust(_t(q), _t(t), _t(p), _t(X), po, free, _t(pm), solver="pcg", **kw)
+    assert abs(float(sp.cost) - float(sj.cost)) <= 1e-4 * float(sj.cost)
+    assert _qang(sp.q, sj.q).max() < 1e-4
+    np.testing.assert_allclose(_n(sp.t), np.asarray(sj.t), atol=1e-4)
+    assert abs(float(sp.params[0]) / float(sj.params[0]) - 1) < 1e-4
+    sd = ba.bundle_adjust(_t(q), _t(t), _t(p), _t(X), po, free, _t(pm), solver="dense", **kw)
+    assert abs(float(sp.cost) - float(sd.cost)) <= 1e-3 * float(sd.cost)
+
+
 def _pnp_problem(scene, v=3):
     """One view's 2D-3D pairs with 20% gross outliers, padded to 512."""
     sc = scene["sc"]

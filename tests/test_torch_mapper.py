@@ -277,11 +277,3 @@ def test_pure_rotation_fails_gracefully():
     rec = run_global_mapper(tracks, h, w, SfmConfig(), device="cpu", **QUIET)
     assert rec.num_registered == 0
 
-
-def test_unported_position_methods_raise():
-    sc = orbit_scene(num_views=4, num_points=50, seed=0)
-    for method in ("linear", "nonlinear"):
-        cfg = SfmConfig()
-        cfg.position.method = method
-        with pytest.raises(NotImplementedError, match=method):
-            run_global_mapper(sc["tracks"], 480, 640, cfg, device="cpu", **QUIET)

@@ -1,8 +1,9 @@
 """Rules of the port: no JAX at import, CUDA or an explicit CPU request, and
-no silent skipping of stages the port does not have yet."""
+every option the JAX CLI accepts runs (no stage is refused or skipped)."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -61,40 +62,148 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     assert load_flow_apply_pairs(DEFAULT_RAFT_CKPT, device="cpu").refines is False
 
 
-@pytest.mark.parametrize("extra,stage", [
-    (("--sfm_type", "incremental"), "incremental SfM"),
-    (("--set", "sfm.position.method=linear"), "linear position"),
-    (("--set", "sfm.position.method=nonlinear"), "nonlinear position"),
-    (("--assume_static", "--skip_sfm", "--set", "flow.selfcal=false",
-      "--set", "flow.stride2_compose_disagree_px=4.0"), "stride-2 composition"),
-])
-def test_unported_stages_raise(tmp_path, extra, stage):
-    cfg = run.config_from_args(_args(tmp_path, *extra))
-    with pytest.raises(NotImplementedError, match=stage):
-        run.run_pipeline(tmp_path, tmp_path / "out", cfg, device="cpu")
-    assert not (tmp_path / "out").exists()          # raised before any work
+# SfM options once refused by the port, each run on a ground-truth flow
+# scene (tests/flow_scenes.py, as tests/test_torch_sfm_slice.py runs it)
+SFM_OPTIONS = [
+    ("--sfm_type", "incremental"),
+    ("--sfm_type", "incremental", "--set", "sfm.ba.refine_focal_length=false"),
+    ("--set", "sfm.position.method=linear"),
+    ("--set", "sfm.position.method=linear", "--set", "sfm.multiple_models=false"),
+    ("--set", "sfm.position.method=linear", "--set", "sfm.position.use_scale_constraints=false"),
+    ("--set", "sfm.position.method=nonlinear"),
+    ("--set", "sfm.position.method=nonlinear", "--set", "sfm.multiple_models=false"),
+    ("--set", "sfm.position.method=nonlinear", "--set", "sfm.position.use_scale_constraints=false"),
+]
+SFM_EVIDENCE = {"incremental": "[incremental] done: ", "linear": "linear (spectral) position",
+                "nonlinear": "nonlinear position refinement"}
 
 
-@pytest.mark.parametrize("extra", [
-    (),
-    ("--sfm_type", "glomap"),
-    ("--set", "sfm.position.method=glomap"),
-    ("--set", "sfm.multiple_models=false"),
-    ("--assume_static", "--set", "flow.selfcal=false"),
-    ("--skip_sfm", "--sfm_type", "incremental", "--set", "sfm.position.method=linear"),
-])
-def test_require_ported_accepts_every_ported_configuration(tmp_path, extra):
-    """require_ported raises only for incremental SfM, linear/nonlinear
-    positions and the stride-2 composition fallback; the default command
-    and the other SfM modes pass (SfM options are moot with --skip_sfm)."""
-    from particlesfm_tpu_torch.pipeline.stages import require_ported
+@pytest.fixture(scope="module")
+def flow_scene(tmp_path_factory):
+    from flow_scenes import make_flow_scene
+    from particlesfm_tpu_torch.io import flo
+    from PIL import Image
 
-    require_ported(run.config_from_args(_args(tmp_path, *extra)))
+    root = tmp_path_factory.mktemp("gt_flow")
+    sc = make_flow_scene(num_views=8)
+    (root / "images").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(sc["num_views"]):
+        Image.fromarray(rng.integers(0, 255, (sc["height"], sc["width"], 3), dtype=np.uint8)
+                        ).save(root / "images" / f"{i:06d}.png")
+    for key, flows in sc["flows"].items():
+        (root / "flows" / key).mkdir(parents=True)
+        for i, f in enumerate(flows):
+            flo.write_flo(root / "flows" / key / f"{i:06d}.flo", f)
+    return root, sc
 
 
-def test_reduced_resolution_flow_raises():
-    with pytest.raises(NotImplementedError, match="infer_scale"):
-        load_flow_apply_pairs(DEFAULT_RAFT_CKPT, scale=0.5, device="cpu")
+@pytest.mark.parametrize("extra", SFM_OPTIONS)
+def test_formerly_refused_sfm_options_run_on_cpu(flow_scene, tmp_path, extra):
+    """Each SfM option the port once refused runs through run_pipeline on
+    the CPU from the CLI parser: every frame registered within 0.05 of the
+    span of the ground truth (Sim3), the model bins, converted poses and
+    stats written, and the option's own stage in the log."""
+    import shutil
+
+    from particlesfm_tpu_torch.geometry import alignment, se3
+    from particlesfm_tpu_torch.io import colmap_model as cm
+
+    root, sc = flow_scene
+    out = tmp_path / "out"
+    shutil.copytree(root / "flows", out / "optical_flows")
+    cfg = run.config_from_args(run.build_arg_parser().parse_args(
+        ["--image_dir", str(root / "images"), "--output_dir", str(out), "--assume_static",
+         "--skip_exists", "--sample_ratio", "4", "--set", "track.capacity=8192", *extra]))
+    logs = []
+    rec = run.run_pipeline(root / "images", out, cfg, log=logs.append, device="cpu")
+    words = [w.split("=")[-1] for w in extra]
+    for key, line in SFM_EVIDENCE.items():
+        if key in words:
+            assert any(line in m for m in logs), key
+    n = sc["num_views"]
+    assert rec.num_registered == n
+    span = np.linalg.norm(sc["centers"][-1] - sc["centers"][0])
+    c = se3.camera_center(torch.as_tensor(rec.qvec), torch.as_tensor(rec.tvec)).numpy()
+    assert alignment.ate_rmse(c, sc["centers"]) < 0.05 * span
+    _, images, points = cm.read_model_binary(out / "sfm" / "model")
+    assert len(images) == n and len(points) > 100
+    # the incremental mode writes one model, no numbered model directories
+    assert (out / "sfm" / "model" / "0").exists() == (
+        "incremental" not in words and cfg.sfm.multiple_models)
+    assert len(list((out / "colmap_outputs_converted" / "poses").glob("*.txt"))) == n
+    assert (out / "sfm" / "stats.txt").read_text().startswith(f"Registered images: {n}")
+
+
+# flow options once refused by the port, on a rendered 128x192 sequence
+# (the half-scale net keeps RAFT's 4 pyramid levels at 64x96)
+FLOW_OPTIONS = [
+    ("--set", "flow.infer_scale=0.5"),
+    ("--set", "flow.stride2_compose_disagree_px=4.0"),
+    ("--set", "flow.infer_scale=0.5", "--set", "flow.stride2_compose_disagree_px=4.0"),
+    ("--set", "flow.infer_scale=0.5", "--set", "flow.stride2_compose_disagree_px=0.25",
+     "--keep_intermediate"),
+]
+
+
+@pytest.fixture(scope="module")
+def rendered(tmp_path_factory):
+    from PIL import Image
+
+    from particlesfm_tpu_torch.synth import random_scene
+
+    root = tmp_path_factory.mktemp("rendered")
+    sc = random_scene(np.random.default_rng(3), num_views=5, height=128, width=192,
+                      motion_scale=0.15, rot_scale=0.2, num_static_obj=4, num_dynamic=1)
+    (root / "img").mkdir()
+    for i in range(5):
+        Image.fromarray(sc.render(i)).save(root / "img" / f"{i:06d}.png")
+    return root / "img", sc
+
+
+@pytest.mark.parametrize("extra", FLOW_OPTIONS)
+def test_formerly_refused_flow_options_run_on_cpu(rendered, tmp_path, extra):
+    """Reduced-resolution flow and the stride-2 composition fallback run
+    through run_pipeline on the CPU: finite flows of the frames' size whose
+    stride-1 EPE against the renderer stays under 1.5 px (median), the
+    fallback's log line when it engages, the tracks, selfcal.json and the
+    stage timers written (with --keep_intermediate, the .flo files)."""
+    from particlesfm_tpu_torch.io.flo import read_flo
+
+    img, sc = rendered
+    out = tmp_path / "out"
+    cfg = run.config_from_args(run.build_arg_parser().parse_args(
+        ["--image_dir", str(img), "--output_dir", str(out), "--assume_static", "--skip_sfm",
+         "--set", "track.capacity=4096", *extra]))
+    logs = []
+    kept = {}
+    flow_stage = run.stages.flow_stage
+
+    def keep(*a, **kw):
+        kept.update(flow_stage(*a, **kw))
+        return kept
+    run.stages.flow_stage = keep
+    try:
+        tracks = run.run_pipeline(img, out, cfg, log=logs.append, device="cpu")
+    finally:
+        run.stages.flow_stage = flow_stage
+    for name, n in (("flow_f", 4), ("flow_b", 4), ("flow_f2", 3), ("flow_b2", 3)):
+        assert tuple(kept[name].shape) == (n, 128, 192, 2)
+        assert bool(torch.isfinite(kept[name]).all())
+    gt = np.stack([sc.gt_flow(i, i + 1) for i in range(4)])
+    assert np.median(np.linalg.norm(kept["flow_f"].numpy() - gt, axis=-1)) < 1.5
+    engaged = [m for m in logs if "composed-stride-1 fallback" in m]
+    if 0 < cfg.flow.stride2_compose_disagree_px < 1:
+        assert engaged
+    if cfg.flow.stride2_compose_disagree_px == 0:
+        assert not engaged
+    assert tracks.num_tracks > 100
+    assert (out / "selfcal.json").exists() and (out / "trajectories" / "tracks.npz").exists()
+    assert "flow" in (out / "timings.txt").read_text()
+    flo_dir = out / "optical_flows" / "flow_f2"
+    assert flo_dir.is_dir() == cfg.keep_intermediate
+    if cfg.keep_intermediate:
+        assert read_flo(sorted(flo_dir.glob("*.flo"))[0]).shape == (128, 192, 2)
 
 
 def test_skip_sfm_runs_every_ported_stage_on_cpu(tmp_path):
