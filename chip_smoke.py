@@ -32,9 +32,14 @@ Phases (each prints its lines; any failure exits non-zero):
   5. modes   — every other run_pipeline option on the same frames:
                (a) `--sfm_type incremental` as the user's command: K1
                    launches, model and converted outputs, >= 3 registered
-                   frames with finite poses; the first PnP registration and
+                   frames with finite poses; the first PnP registration,
+                   every PnP call (equal inliers on the card's inputs) and
                    the first BA card vs CPU; the incremental stage repeated
-                   (same registration order, bit-identical poses);
+                   (same registration order, bit-identical poses); the
+                   incremental stage on a seeded 30,000-track subset of the
+                   default run's labeled tracks on the card (every PnP call
+                   card vs CPU) and on the CPU in a worker process: the same
+                   registered frames;
                (b) `sfm.position.method=linear` and `=nonlinear` on the
                    default run's labeled tracks: each estimator card vs CPU;
                (c) the default run's last BA problem with solver="pcg",
@@ -48,10 +53,21 @@ Phases (each prints its lines; any failure exits non-zero):
                lookup on the card; the flows must agree. `[kernel-net]`: the
                measurements of phase 3 on the pyramid and coordinates of the
                block's last GRU iteration (the net's own coordinates).
+  7. train   — the three trainers at their default configurations on small
+               in-process renders: for each, one step card vs CPU from the
+               same parameters and batch with TF32 off (loss within 1e-4,
+               gradient global norm within 1e-3) and, for flow and depth,
+               TF32 on vs off (loss within 1e-2); 20 steps (finite losses,
+               steps/s, peak GB); the flow trainer's checkpoint read back
+               through the pipeline's `_load_raft_apply`; K1 in the flow
+               trainer's validation (`[kernel-val]`, 32x40 grid, batch 4:
+               4-byte copies, as level widths 10 and 5 are not multiples of
+               4) held against the plain lookup; train_cli --synthetic3d.
 The last two lines are the card's `name, power.limit` and
 {"ok": true, "device": {...}}; the line before them lists the kernels (the
 `*_net` keys are the `[kernel-net]` numbers, the `*_half` keys those of
-`[kernel-half]` and the half-scale flow stage's launches).
+`[kernel-half]` and the half-scale flow stage's launches, the `*_val` keys
+those of `[kernel-val]` and `launches_train` the flow trainer's).
 """
 from __future__ import annotations
 
@@ -76,7 +92,8 @@ FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 SEQ = dict(seed=0, idx=3, h=436, w=1024)   # seq_03_dyn, make_acceptance_set.py:50-83
 FRAMES = 48                    # the sequence length of the acceptance set
 GT_PAIRS = 8                   # stride-1 pairs scored against ground truth
-SFM_DUMP_TRACKS = 30_000       # --dump: the labeled-track subset the JAX compare reruns
+SFM_DUMP_TRACKS = 30_000       # the labeled-track subset of the incremental card-vs-CPU
+                               # check and the JAX compare (--dump)
 
 
 def log(msg: str) -> None:
@@ -522,7 +539,7 @@ class SolverLog:
                    "triangulate_tracks", "filter_observations", "bundle_adjust",
                    "estimate_pose_pnp")
 
-    def __init__(self, targets=None):
+    def __init__(self, targets=None, keep_all=()):
         from particlesfm_tpu_torch.pipeline import stages
         from particlesfm_tpu_torch.sfm import mapper
 
@@ -530,6 +547,7 @@ class SolverLog:
             targets = [(mapper, self.TIMED),
                        (stages, ("write_models", "write_converted_outputs"))]
         self.first, self.last, self.secs, self.count, self._orig = {}, {}, {}, {}, []
+        self.calls = {name: [] for name in keep_all}     # every call of these
         for mod, names in targets:
             for name in names:
                 self._wrap(mod, name)
@@ -549,6 +567,8 @@ class SolverLog:
             self.count[name] = self.count.get(name, 0) + 1
             self.first.setdefault(name, (a, kw, out))
             self.last[name] = (a, kw, out)
+            if name in self.calls:
+                self.calls[name].append((a, kw, out))
             return out
         setattr(mod, name, timed)
 
@@ -667,9 +687,10 @@ def check_sfm(dev, cfg, out_dir: Path, msgs, rec, gt, solvers: SolverLog, sfm_s:
     reader, the converted poses against the renderer's (>= 44 of 48 frames,
     Sim3 ATE <= 0.02), the native library, the solvers card vs CPU, and the
     stage repeated on the card from the run's labeled tracks under
-    torch.profiler (the same registered frames, poses within 1e-6). With
-    `dump`, the stage also runs on a seeded subset of SFM_DUMP_TRACKS labeled
-    tracks, which is saved beside the dump with selfcal.json: the full set
+    torch.profiler (the same registered frames, poses within 1e-6). A seeded
+    subset of SFM_DUMP_TRACKS labeled tracks is saved with selfcal.json for
+    the incremental mapper's card-vs-CPU run in [modes]; with `dump` the
+    stage also runs on it, and it is saved beside the dump: the full set
     (~150 MB) exceeds what a run may bring back, and a full-size JAX run is
     not for a CPU host."""
     import torch
@@ -759,14 +780,14 @@ def check_sfm(dev, cfg, out_dir: Path, msgs, rec, gt, solvers: SolverLog, sfm_s:
     out = dict(sfm_gt_w2c=gt["w2c"], sfm_registered=rec.registered, sfm_qvec=rec.qvec,
                sfm_tvec=rec.tvec, sfm_params=rec.params, sfm_hw=np.array([H, W]),
                sfm_gt_focal=np.float64(gt["focal"]))
+    rows = np.sort(np.random.default_rng(0).choice(lab.num_tracks, SFM_DUMP_TRACKS,
+                                                   replace=False))
+    sub = TrackArrays(xy=lab.xy[rows], mask=lab.mask[rows], labels=lab.labels[rows])
+    sub_dir = WORK / "sfm_subset"
+    sub_dir.mkdir(parents=True, exist_ok=True)
+    shutil.copy(out_dir / "selfcal.json", sub_dir / "selfcal.json")
+    sub.save(sub_dir / "tracks.npz")
     if dump:
-        rows = np.sort(np.random.default_rng(0).choice(lab.num_tracks, SFM_DUMP_TRACKS,
-                                                       replace=False))
-        sub = TrackArrays(xy=lab.xy[rows], mask=lab.mask[rows], labels=lab.labels[rows])
-        sub_dir = WORK / "sfm_subset"
-        sub_dir.mkdir(parents=True, exist_ok=True)
-        shutil.copy(out_dir / "selfcal.json", sub_dir / "selfcal.json")
-        sub.save(sub_dir / "tracks.npz")
         r = stages.sfm_stage(sub, H, W, sub_dir, cfg, dev, names, log=lambda *a: None)
         log(f"[sfm] --dump: {SFM_DUMP_TRACKS} of {lab.num_tracks} labeled tracks (seed 0): "
             f"{r.num_registered}/{T} registered on the card")
@@ -914,7 +935,8 @@ def modes_incremental(dev, img_dir: Path, gt) -> dict:
         "--image_dir", str(img_dir), "--output_dir", str(out_dir), "--sfm_type", "incremental"]))
     msgs = []
     solvers = SolverLog([(incremental, SolverLog.INCREMENTAL),
-                         (stages, ("write_colmap_model", "write_converted_outputs"))])
+                         (stages, ("write_colmap_model", "write_converted_outputs"))],
+                        keep_all=("estimate_pose_pnp",))
     try:
         cl.reset_launches()
         t0 = time.perf_counter()
@@ -978,6 +1000,7 @@ def modes_incremental(dev, img_dir: Path, gt) -> dict:
         f"{tc:.3f}s / {tp:.3f}s")
     if n[1] != n[2] or n[0] != n[1]:
         fail(f"modes: first PnP inlier counts run/card/CPU {n}")
+    check_every_pnp("(a)", solvers.calls["estimate_pose_pnp"])
     a, out, card, cpu, tc, tp = both("bundle_adjust")
     c_c, c_p = float(card.cost), float(cpu.cost)
     rel = abs(c_c - c_p) / max(abs(c_p), 1e-30)
@@ -1015,6 +1038,105 @@ def modes_incremental(dev, img_dir: Path, gt) -> dict:
                 inc_pnp_X=a[0].cpu().numpy(), inc_pnp_x=a[1].cpu().numpy(),
                 inc_pnp_mask=a[2].cpu().numpy(), inc_pnp_thres=np.float64(a[3]),
                 inc_pnp_u=kw["u"].cpu().numpy(), inc_pnp_inliers=np.int64(int(out.num_inliers)))
+
+
+def check_every_pnp(tag: str, calls) -> None:
+    """Every PnP call of a run, card against CPU on the card's inputs: equal
+    inlier counts (the run's own count against the CPU's)."""
+    from particlesfm_tpu_torch.sfm import incremental
+
+    t0 = time.perf_counter()
+    diff, counts = [], []
+    for i, (a, kw, out) in enumerate(calls):
+        n_card = int(out.num_inliers)
+        n_cpu = int(incremental.estimate_pose_pnp(*_to_cpu(a), **_to_cpu(kw)).num_inliers)
+        counts.append(n_card)
+        if n_card != n_cpu:
+            diff.append((i, n_card, n_cpu))
+    n_fail = sum(c < 15 for c in counts)
+    log(f"[modes] {tag} card vs CPU, every PnP call of the run on the card's inputs: "
+        f"{len(calls)} calls ({n_fail} with < 15 inliers), {len(diff)} inlier counts "
+        f"differ {diff[:5]}; CPU {time.perf_counter() - t0:.2f}s")
+    if not calls or diff:
+        fail(f"modes: {tag} {len(diff)} of {len(calls)} PnP calls card vs CPU differ: {diff[:5]}")
+
+
+def _cpu_incremental(sub_dir: str, H: int, W: int, T: int, out_npz: str) -> None:
+    """Worker process: the incremental SfM stage on the CPU on the track
+    subset (4 torch threads), its registered frames and order to out_npz."""
+    import torch
+
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    torch.set_num_threads(4)
+    cfg = R.config_from_args(R.build_arg_parser().parse_args(
+        ["--image_dir", "-", "--output_dir", "-", "--sfm_type", "incremental"]))
+    d = Path(sub_dir).parent / "sub_incremental_cpu"
+    d.mkdir(parents=True, exist_ok=True)
+    shutil.copy(Path(sub_dir) / "selfcal.json", d / "selfcal.json")
+    msgs = []
+    t0 = time.perf_counter()
+    r = stages.sfm_stage(TrackArrays.load(Path(sub_dir) / "tracks.npz"), H, W, d, cfg, "cpu",
+                         [f"{i:06d}.ppm" for i in range(T)], log=msgs.append)
+    np.savez(out_npz, registered=r.registered, order=np.array(_registration_order(msgs)),
+             secs=time.perf_counter() - t0)
+
+
+def start_cpu_incremental(gt):
+    """Start the CPU run of the incremental stage on the subset in a worker
+    process (it overlaps the card phases); `modes_subset` joins it."""
+    H, W = gt["dynamic"].shape[1:]
+    out = WORK / "sub_incremental_cpu.npz"
+    proc = mp.get_context("spawn").Process(
+        target=_cpu_incremental,
+        args=(str(WORK / "sfm_subset"), H, W, len(gt["w2c"]), str(out)))
+    proc.start()
+    return proc, out
+
+
+def modes_subset(dev, gt, cpu_run) -> dict:
+    """The incremental SfM stage on the SFM_DUMP_TRACKS-track subset on the
+    card, every PnP call of it card vs CPU, and the same stage on the CPU
+    (the worker of `start_cpu_incremental`): the same registered frames."""
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.sfm import incremental
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    sub = TrackArrays.load(WORK / "sfm_subset" / "tracks.npz")
+    T = len(gt["w2c"])
+    H, W = gt["dynamic"].shape[1:]
+    cfg = R.config_from_args(R.build_arg_parser().parse_args(
+        ["--image_dir", "-", "--output_dir", "-", "--sfm_type", "incremental"]))
+    solvers = SolverLog([(incremental, ("estimate_pose_pnp",))], keep_all=("estimate_pose_pnp",))
+    msgs = []
+    try:
+        t0 = time.perf_counter()
+        r = stages.sfm_stage(sub, H, W, _stage_dir("sub_incremental", WORK / "sfm_subset"),
+                             cfg, dev, [f"{i:06d}.ppm" for i in range(T)], log=msgs.append)
+        secs = time.perf_counter() - t0
+    finally:
+        solvers.restore()
+    check_every_pnp("subset", solvers.calls["estimate_pose_pnp"])
+    proc, out = cpu_run
+    proc.join()
+    if proc.exitcode != 0:
+        fail(f"modes: the CPU incremental run on the subset exited {proc.exitcode}")
+    z = np.load(out)
+    order = _registration_order(msgs)
+    same_set = bool((z["registered"] == r.registered).all())
+    log(f"[modes] (a) the incremental stage on the {SFM_DUMP_TRACKS}-track subset: card "
+        f"{r.num_registered}/{T} registered in {secs:.2f}s, CPU {int(z['registered'].sum())}/{T} "
+        f"in {float(z['secs']):.2f}s; same registered frames {same_set}, same order "
+        f"{order == z['order'].tolist()}; card only "
+        f"{np.nonzero(r.registered & ~z['registered'])[0].tolist()}, CPU only "
+        f"{np.nonzero(z['registered'] & ~r.registered)[0].tolist()}")
+    if not same_set:
+        fail("modes: the card and the CPU register other frames on the track subset")
+    return {"sfm_sub_incremental_registered": r.registered, "sfm_sub_incremental_qvec": r.qvec,
+            "sfm_sub_incremental_tvec": r.tvec, "sfm_sub_incremental_params": r.params}
 
 
 def modes_positions(dev, slice_out: Path, gt) -> None:
@@ -1181,14 +1303,23 @@ def modes_half_flow(dev, img_dir: Path, gt) -> dict:
 
 
 def phase_modes(dev, s: dict, dump: bool) -> dict:
-    """Phase 5: the other run_pipeline options on the slice's frames. With
-    `dump`, the incremental, linear and nonlinear stages also run on the
-    --dump track subset, whose poses go into the dump."""
-    res = modes_incremental(dev, s["img_dir"], s["gt"])
-    modes_positions(dev, s["out_dir"], s["gt"])
-    modes_pcg(s["last_ba"])
-    res.update(modes_half_flow(dev, s["img_dir"], s["gt"]))
+    """Phase 5: the other run_pipeline options on the slice's frames, and the
+    incremental stage on the track subset card vs CPU. With `dump`, the
+    linear and nonlinear stages also run on the subset; its poses go into
+    the dump."""
+    cpu_run = start_cpu_incremental(s["gt"])
+    try:
+        res = modes_incremental(dev, s["img_dir"], s["gt"])
+        modes_positions(dev, s["out_dir"], s["gt"])
+        modes_pcg(s["last_ba"])
+        res.update(modes_half_flow(dev, s["img_dir"], s["gt"]))
+        sub = modes_subset(dev, s["gt"], cpu_run)
+    finally:
+        if cpu_run[0].is_alive():
+            cpu_run[0].terminate()
+        cpu_run[0].join()
     if dump:
+        s["dump"].update(sub)
         from particlesfm_tpu_torch.pipeline import run as R
         from particlesfm_tpu_torch.pipeline import stages
         from particlesfm_tpu_torch.tracks.store import TrackArrays
@@ -1197,8 +1328,7 @@ def phase_modes(dev, s: dict, dump: bool) -> dict:
         T = len(s["gt"]["w2c"])
         H, W = s["gt"]["dynamic"].shape[1:]
         names = [f"{i:06d}.ppm" for i in range(T)]
-        for mode, extra in (("incremental", ["--sfm_type", "incremental"]),
-                            ("linear", ["--set", "sfm.position.method=linear"]),
+        for mode, extra in (("linear", ["--set", "sfm.position.method=linear"]),
                             ("nonlinear", ["--set", "sfm.position.method=nonlinear"])):
             cfg = R.config_from_args(R.build_arg_parser().parse_args(
                 ["--image_dir", "-", "--output_dir", "-", *extra]))
@@ -1255,6 +1385,260 @@ def phase_net(dev, img_dir: Path, scale: float = 1.0, tag: str = "kernel-net"):
         return measure_lookup(tag, last["pyramid"], last["coords"], last["radius"])
 
 
+def _train_compare(tag: str, step_fn, use_tf32: bool = True) -> dict:
+    """One training step from the same parameters and batch on the card and
+    on the CPU with TF32 off (`step_fn(device, use_tf32) -> (loss, grad
+    norm)`): loss within 1e-4 relative, the gradients' global norm within
+    1e-3; with `use_tf32`, the card's step with TF32 on against off: loss
+    within 1e-2."""
+    t0 = time.perf_counter()
+    lc, gc = step_fn("cuda", False)
+    lp, gp = step_fn("cpu", False)
+    res = dict(loss_rel=abs(lc - lp) / abs(lp), grad_rel=abs(gc - gp) / gp,
+               cpu_s=time.perf_counter() - t0)
+    msg = (f"[train] {tag}: card vs CPU, one step from the same parameters and batch, TF32 "
+           f"off: loss {lc:.6f} / {lp:.6f} ({res['loss_rel']:.2e} relative), gradient global "
+           f"norm {gc:.6f} / {gp:.6f} ({res['grad_rel']:.2e})")
+    if use_tf32:
+        lt, gt = step_fn("cuda", True)
+        res["tf32_rel"] = abs(lt - lc) / abs(lc)
+        msg += (f"; TF32 on vs off on the card: loss {lt:.6f} ({res['tf32_rel']:.2e} "
+                f"relative), gradient norm {gt:.6f}")
+    else:
+        msg += "; TF32 not used (the reference trains it at full float32 precision)"
+    log(msg)
+    if not (res["loss_rel"] <= 1e-4 and res["grad_rel"] <= 1e-3):
+        fail(f"train: {tag} card vs CPU step differs: {res}")
+    if use_tf32 and not res["tf32_rel"] <= 1e-2:
+        fail(f"train: {tag} TF32 moves the loss by {res['tf32_rel']:.2e} > 1e-2")
+    return res
+
+
+def _timed_run(fn):
+    """fn() with the card's peak allocation reset first: (result, seconds,
+    peak GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_flow(dev) -> dict:
+    """The flow trainer at its defaults (batch 4, crop 192x256, 12
+    iterations) warm-started from checkpoints/raft_synth.msgpack on 4
+    rendered scenes (48 pairs, 8 held out): 20 steps through `train`, whose
+    validation runs the inference model with K1 (2 batches of 4 pairs at a
+    32x40 grid, 12 iterations); card vs CPU and TF32 checks on one step; the
+    best checkpoint read back through the pipeline's `_load_raft_apply`."""
+    import copy
+
+    import torch
+
+    from particlesfm_tpu_torch.flow import data as fdata
+    from particlesfm_tpu_torch.flow import train as ft
+    from particlesfm_tpu_torch.flow.infer import load_model
+    from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.ops.corr_lookup import lookup_corr, lookup_corr_plain
+    from particlesfm_tpu_torch.pipeline import run as R
+
+    d = WORK / "train_flow"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    i1, i2, fl = fdata.generate_dataset(4, fdata.FlowPairSpec(), seed=0,
+                                        workers=min(8, os.cpu_count() or 1), log=lambda *a: None)
+    fdata.save_dataset(d / "pairs.npz", i1, i2, fl)
+    render_s = time.perf_counter() - t0
+    init = ROOT / "checkpoints" / "raft_synth.msgpack"
+    steps, batch, iters, crop = 20, 4, 12, (192, 256)
+
+    crop = tuple(min(c, n) for c, n in zip(crop, i1.shape[1:3]))    # as `train` clamps it
+    base = ft.build_model(0, init, "cpu", log=lambda *a: None)
+    n_val = min(max(8, len(i1) // 20), len(i1) // 2)
+    idx, offs = ft.step_draws(0, 0, len(i1) - n_val, batch, *i1.shape[1:3], *crop)
+    tr = [torch.from_numpy(a[n_val:]) for a in (i1, i2, fl)]
+
+    def one_step(device, use_tf32):
+        model = copy.deepcopy(base).to(device)
+        b = ft.gather_batch(*(t.to(device) for t in tr), torch.from_numpy(idx).to(device),
+                            torch.from_numpy(offs).to(device), crop)
+        loss = ft.loss_and_grads(model, *b, iters, use_tf32)
+        gn = optim_norm([p.grad for p in model.parameters()])
+        return float(loss), gn
+
+    cmp = _train_compare("flow", one_step)
+    stats = {}
+    out = d / "raft_train.msgpack"
+    cl.reset_launches()
+    best, secs, peak = _timed_run(lambda: ft.train(
+        out, steps=steps, batch=batch, iters=iters, dataset_cache=str(d / "pairs.npz"),
+        eval_every=steps, crop_hw=crop, init_ckpt=str(init), log=lambda *a: None, device=dev,
+        stats=stats))
+    launches, vec_launches = cl.launches, cl.vec_launches
+    losses = stats["losses"]
+    n_val_batches = math.ceil(n_val / batch)
+    if launches != n_val_batches * iters or vec_launches != 0:
+        fail(f"train: flow validation launched K1 {launches} times ({vec_launches} 16-byte), "
+             f"expected {n_val_batches * iters} with 4-byte copies (level widths 40/20/10/5)")
+    if not (np.isfinite(losses).all() and len(losses) == steps and np.isfinite(best)):
+        fail(f"train: flow losses {losses} / best EPE {best}")
+    cfg = R.config_from_args(R.build_arg_parser().parse_args(
+        ["--image_dir", "-", "--output_dir", "-", "--set", f"flow.checkpoint={out}"]))
+    apply = R._load_raft_apply(cfg, dev)
+    stack = torch.from_numpy(np.stack([i1[0], i2[0]]))
+    flow = apply(stack, [0], [1])
+    if tuple(flow.shape) != (1, *i1.shape[1:3], 2) or not bool(torch.isfinite(flow).all()):
+        fail("train: the trained flow checkpoint gave no finite flow through _load_raft_apply")
+
+    # K1 at the validation shape: the checkpoint's net on the first held-out
+    # batch with K1 and with the plain lookup; K1 measured on the last GRU
+    # iteration's pyramid and coordinates
+    model, _ = load_model(out, dev)
+    a = torch.from_numpy(i1[:batch]).to(dev, torch.float32)
+    b = torch.from_numpy(i2[:batch]).to(dev, torch.float32)
+    last = {}
+
+    def keep_last(pyramid, pts, radius):
+        last.update(pyramid=pyramid, coords=pts, radius=radius)
+        return lookup_corr(pyramid, pts, radius)
+
+    with torch.inference_mode():
+        model.lookup = keep_last
+        fk = model(a, b, iters=iters)
+        model.lookup = lookup_corr_plain
+        fp = model(a, b, iters=iters)
+        dd = (fk - fp).abs()
+        mean_d, max_d = float(dd.mean()), float(dd.max())
+        if not mean_d <= 1e-3:
+            fail(f"train: K1 vs plain flows at the validation shape differ by {mean_d} px")
+        H8, W8 = last["pyramid"][0].shape[-2:]
+        log(f"[train] flow: rendered {len(i1)} pairs in {render_s:.1f}s; 20 steps "
+            f"{secs:.2f}s = {steps / stats['seconds']:.2f} steps/s (loop), peak {peak:.2f} GB; "
+            f"losses {np.round(losses.astype(float), 4).tolist()}; val EPE {best:.4f} px; K1 {launches} "
+            f"launches in validation ({vec_launches} 16-byte); the checkpoint through "
+            f"_load_raft_apply: flow {tuple(flow.shape)} finite; K1 vs plain at the "
+            f"validation shape ({batch} pairs, grid {H8}x{W8}): flow |diff| mean "
+            f"{mean_d:.3e} px, max {max_d:.3e} px")
+        k = measure_lookup("kernel-val", last["pyramid"], last["coords"], last["radius"],
+                           vec=False)
+    return dict(cmp, losses=losses, steps_per_s=steps / stats["seconds"], peak_gb=peak,
+                launches=launches, kernel=k)
+
+
+def optim_norm(grads) -> float:
+    from particlesfm_tpu_torch.utils.optim import global_norm
+
+    return float(global_norm([g.float().cpu() for g in grads]))
+
+
+def train_depth(dev) -> dict:
+    """The depth trainer at its defaults (batch 8, 256x320) on 6 rendered
+    scenes (18 frames, 8 held out): 20 steps through `train`; card vs CPU and
+    TF32 checks on one step."""
+    import copy
+
+    import torch
+
+    from particlesfm_tpu_torch.depth import train as dt
+
+    d = WORK / "train_depth"
+    d.mkdir(parents=True)
+    imgs, deps = dt.generate_depth_dataset(6, seed=0, workers=min(8, os.cpu_count() or 1),
+                                           log=lambda *a: None)
+    np.savez(d / "frames.npz", images=imgs, depths=deps)
+    base = dt.build_model(0, "cpu")
+    n_val = min(max(8, len(imgs) // 20), len(imgs) // 2)
+    idx = np.random.default_rng(0).integers(0, len(imgs) - n_val, 8)
+    bi = torch.from_numpy(imgs[n_val:][idx]).float()
+    bd = torch.from_numpy(deps[n_val:][idx]).float()
+
+    def one_step(device, use_tf32):
+        model = copy.deepcopy(base).to(device)
+        loss = dt.loss_and_grads(model, bi.to(device), bd.to(device), use_tf32)
+        return float(loss), optim_norm([p.grad for p in model.parameters()])
+
+    cmp = _train_compare("depth", one_step)
+    stats = {}
+    best, secs, peak = _timed_run(lambda: dt.train(
+        d / "depth_train.msgpack", steps=20, batch=8, dataset_cache=str(d / "frames.npz"),
+        eval_every=20, log=lambda *a: None, device=dev, stats=stats))
+    losses = stats["losses"]
+    if not (np.isfinite(losses).all() and len(losses) == 20 and np.isfinite(best)):
+        fail(f"train: depth losses {losses} / best SSI {best}")
+    log(f"[train] depth: {len(imgs)} frames at {imgs.shape[2]}x{imgs.shape[1]}; 20 steps "
+        f"{secs:.2f}s = {20 / stats['seconds']:.2f} steps/s (loop), peak {peak:.2f} GB; losses "
+        f"{np.round(losses.astype(float), 5).tolist()}; val SSI-MSE {best:.5f}")
+    return dict(cmp, losses=losses, steps_per_s=20 / stats["seconds"], peak_gb=peak)
+
+
+def train_motionseg(dev) -> dict:
+    """The motion-seg trainer at its --synthetic3d defaults (batch 4, depth
+    34x60, 1088 track slots of 10 frames): card vs CPU on one step; 20 steps
+    of train_step timed on pre-made batches; then train_cli itself for one
+    epoch of 2 steps, whose checkpoint loads back strictly."""
+    import copy
+
+    import torch
+
+    from particlesfm_tpu_torch.io.checkpoint import load_msgpack, motionseg_state_dict_from_jax
+    from particlesfm_tpu_torch.models.motionseg import TrajOADepth
+    from particlesfm_tpu_torch.motionseg import train as mt
+    from particlesfm_tpu_torch.motionseg import train_cli
+    from particlesfm_tpu_torch.motionseg.synth3d import synth3d_batch
+
+    rng = np.random.default_rng(0)
+    batches = [synth3d_batch(rng, B=4, depth_hw=(34, 60)) for _ in range(21)]
+    base = TrajOADepth(input_hw=(34, 60))
+    mt.create_train_state(base, 0)
+
+    def one_step(device, use_tf32):
+        model = copy.deepcopy(base).to(device).train()
+        loss, _, _ = mt.loss_and_grads(model, batches[0])
+        return float(loss), optim_norm([p.grad for p in model.parameters()])
+
+    cmp = _train_compare("motionseg", one_step, use_tf32=False)
+    model = copy.deepcopy(base).to(dev)
+    state, opt = mt.create_train_state(model, 0)
+    dev_batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()} for b in batches[1:]]
+
+    def run():
+        nonlocal state
+        out = []
+        for b in dev_batches:
+            state, m = mt.train_step(model, opt, state, b)
+            out.append(m["loss"])
+        return torch.stack(out).cpu().numpy()
+
+    losses, secs, peak = _timed_run(run)
+    if not (np.isfinite(losses).all() and len(losses) == 20):
+        fail(f"train: motionseg losses {losses}")
+    d = WORK / "train_seg"
+    rc = train_cli.main(["--synthetic3d", "--out_dir", str(d), "--epochs", "1",
+                         "--steps_per_epoch", "2", "--device", str(dev)])
+    blob = load_msgpack(d / "checkpoint_best.msgpack")
+    TrajOADepth(input_hw=(34, 60)).load_state_dict(
+        motionseg_state_dict_from_jax(blob["params"], blob["batch_stats"]), strict=True)
+    if rc != 0 or int(blob["step"]) != 2:
+        fail(f"train: train_cli --synthetic3d returned {rc}, step {blob.get('step')}")
+    log(f"[train] motionseg: 20 steps {secs:.2f}s = {20 / secs:.2f} steps/s, peak {peak:.2f} GB; "
+        f"losses {np.round(losses.astype(float), 4).tolist()}; train_cli --synthetic3d (1 epoch x 2 steps): "
+        f"{(d / 'test_metrics.txt').read_text().strip()}")
+    return dict(cmp, losses=losses, steps_per_s=20 / secs, peak_gb=peak)
+
+
+def phase_train(dev) -> dict:
+    """Phase [train]: the flow, depth and motion-seg trainers on the card."""
+    res = {"flow": train_flow(dev), "depth": train_depth(dev),
+           "motionseg": train_motionseg(dev)}
+    log("[train] summary " + json.dumps({k: {"steps_per_s": round(v["steps_per_s"], 3),
+                                             "peak_gb": round(v["peak_gb"], 3)}
+                                         for k, v in res.items()}))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1309,6 +1693,7 @@ def main(argv=None) -> int:
             np.savez_compressed(d / "slice_dump.npz", **s["dump"])
         kh = phase_net(dev, s["img_dir"], scale=0.5, tag="kernel-half")
         kn = phase_net(dev, s["img_dir"])
+        tr = phase_train(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1322,7 +1707,12 @@ def main(argv=None) -> int:
         library_ms_net=kn["library_ms"], bound_ms_net=kn["bound_ms"],
         max_abs_err_net=kn["max_abs_err"], launches_half=m["launches_half"],
         ms_half=kh["ms"], plain_ms_half=kh["plain_ms"], library_ms_half=kh["library_ms"],
-        bound_ms_half=kh["bound_ms"], max_abs_err_half=kh["max_abs_err"])]
+        bound_ms_half=kh["bound_ms"], max_abs_err_half=kh["max_abs_err"],
+        launches_train=tr["flow"]["launches"], ms_val=tr["flow"]["kernel"]["ms"],
+        plain_ms_val=tr["flow"]["kernel"]["plain_ms"],
+        library_ms_val=tr["flow"]["kernel"]["library_ms"],
+        bound_ms_val=tr["flow"]["kernel"]["bound_ms"],
+        max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..io.checkpoint import load_msgpack, raft_state_dict_from_jax
+from ..io.checkpoint import (load_msgpack, raft_state_dict_from_jax,
+                             raft_variables_from_torch, save_msgpack)
 from ..models.depth import resize_bilinear
 from ..models.raft import RAFT, compact_raft
 
@@ -62,6 +63,17 @@ def model_from_meta(meta: dict) -> RAFT:
     if meta.get("variant", "compact") == "compact":
         return compact_raft()
     return RAFT()
+
+
+def save_flow_checkpoint(path, model: RAFT, variant: str = "compact", extra: dict | None = None):
+    """Write a flow checkpoint either package loads: the flax msgpack blob
+    {"params": tree} of the model's weights and the `.json` sidecar
+    {"variant", **extra} (reference flow/infer.py:41-51)."""
+    path = Path(path)
+    save_msgpack(path, {"params": raft_variables_from_torch(model.state_dict())["params"]})
+    meta = {"variant": variant}
+    meta.update(extra or {})
+    Path(str(path) + ".json").write_text(json.dumps(meta, indent=2))
 
 
 def load_flow_checkpoint(path):

@@ -3,6 +3,23 @@
 
 Fixed-trial hypotheses evaluated in one batch, then two rounds of pose-only
 Gauss-Newton on the consensus set. The mapper's view rescue uses it.
+
+Three decisions of the reference hang on the device (the port's deviations,
+each held in tests/test_torch_globalsfm.py):
+- The null vector. Where a 6-point sample is degenerate (its normal
+  matrix has two or more null directions: points on a line, a point drawn
+  twice) the eigensolver returns any vector of that space, and LAPACK and
+  cuSOLVER return different ones. The port gives such a sample no
+  hypothesis; when no hypothesis explains a point, the estimate fails.
+- P or -P. The reference keeps the pose that puts more of the 6-point
+  sample in front. Where both put as many in front, it keeps whichever sign
+  its eigensolver returned, and LAPACK and cuSOLVER return different signs.
+  The port fixes the null vector's sign and takes the one with more inliers.
+- The Gauss-Newton polish. When the best hypothesis explains one or two
+  points, the first round solves a 6x6 system of rank <= 4 damped by 1e-8;
+  in float32 its step is set by the rounding of the sums, so the device's
+  summation order decides the pose. The whole estimate runs in float64 and
+  returns the pose in the inputs' dtype.
 """
 from __future__ import annotations
 
@@ -23,8 +40,13 @@ class PnPResult(NamedTuple):
 
 
 def _dlt_pose(X, x, w):
-    """DLT camera matrix from weighted 2D-3D pairs, batched over the leading
-    axis of w. X [M, 3], x [M, 2] normalized, w [S, M]. Returns (q [S, 4], t [S, 3])."""
+    """DLT camera matrices from weighted 2D-3D pairs, batched over the leading
+    axis of w. X [M, 3], x [M, 2] normalized, w [S, M]. Returns the poses of
+    P and of -P (q [S, 2, 4], t [S, 2, 3]), the weighted count of points
+    each puts in front ([S, 2]; the caller picks one of the two), and
+    whether the sample is degenerate ([S]: a null space of two or more
+    dimensions, as of 6 points on a line or a point drawn twice, where the
+    null vector is whatever the eigensolver returns)."""
     Xh = torch.cat([X, torch.ones_like(X[:, :1])], dim=-1)           # [M, 4]
     zero = torch.zeros_like(Xh)
     r1 = torch.cat([Xh, zero, -x[:, 0:1] * Xh], dim=-1)
@@ -32,29 +54,29 @@ def _dlt_pose(X, x, w):
     A = torch.cat([r1, r2], dim=0) * torch.cat([w, w], dim=-1)[..., None]   # [S, 2M, 12]
     # The 12x12 normal matrix of a 6-point sample is rank-deficient by
     # design; its float32 null vector hangs on rounding (the reference's own
-    # hypotheses move when its inputs are scaled by 1 +- 2^-22), so it is
-    # formed and solved in float64, as the 8-point normal matrix is.
-    A = A.double()
-    _, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
-    P = V[..., :, 0].reshape(-1, 3, 4).to(X.dtype)
+    # hypotheses move when its inputs are scaled by 1 +- 2^-22), so the whole
+    # estimate is float64, as the 8-point normal matrix is.
+    ev, V = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    # second-smallest eigenvalue at the float64 noise floor (seq_03_dyn's
+    # 10,304 incremental samples: 85 below 1e-15 of the largest, none in
+    # [1e-15, 1e-13), the rest above)
+    degenerate = ev[..., 1] <= 1e-14 * ev[..., -1]
+    # The null vector's sign is the eigensolver's choice (LAPACK and cuSOLVER
+    # differ): fix it, largest-magnitude entry positive.
+    v = V[..., :, 0]
+    v = v * torch.sign(v.gather(-1, v.abs().argmax(-1, keepdim=True)))
+    P = torch.stack([v, -v], dim=1).reshape(-1, 2, 3, 4)
 
-    def decompose(Pm):
-        U, S, Vt = torch.linalg.svd(Pm[..., :3])
-        sgn = torch.sign(torch.linalg.det(U @ Vt))
-        D = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
-        R = (U * D[..., None, :]) @ Vt
-        scale = S.mean(-1) * sgn
-        scale = torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12), scale)
-        return rot.rotmat_to_quat(R), Pm[..., 3] / scale[..., None]
-
-    # the null vector's sign is ambiguous: take the one putting the weighted
-    # majority of points in front
-    q_pos, t_pos = decompose(P)
-    q_neg, t_neg = decompose(-P)
-    front_pos = ((se3.pose_apply(q_pos[:, None], t_pos[:, None], X)[..., 2] > 0) * w).sum(-1)
-    front_neg = ((se3.pose_apply(q_neg[:, None], t_neg[:, None], X)[..., 2] > 0) * w).sum(-1)
-    use_neg = (front_neg > front_pos)[:, None]
-    return torch.where(use_neg, q_neg, q_pos), torch.where(use_neg, t_neg, t_pos)
+    U, S, Vt = torch.linalg.svd(P[..., :3])
+    sgn = torch.sign(torch.linalg.det(U @ Vt))
+    D = torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
+    R = (U * D[..., None, :]) @ Vt
+    scale = S.mean(-1) * sgn
+    scale = torch.where(scale.abs() < 1e-12, torch.full_like(scale, 1e-12), scale)
+    q, t = rot.rotmat_to_quat(R), P[..., 3] / scale[..., None]
+    front = ((se3.pose_apply(q[..., None, :], t[..., None, :], X)[..., 2] > 0)
+             * w[:, None]).sum(-1)
+    return q, t, front, degenerate
 
 
 def _reproj_err2(q, t, X, x):
@@ -100,15 +122,30 @@ def estimate_pose_pnp(X, x, mask, thres_sq: float, num_hypotheses: int = 64,
     order = torch.argsort((~mask).to(torch.uint8), stable=True)
     count = torch.clamp(mask.sum(), min=1).to(u.dtype)
     idx = order[(u * count).to(torch.int64)]                          # [S, 6]
+    dtype = X.dtype
+    X, x = X.double(), x.double()
     w = torch.zeros(S, M, dtype=X.dtype, device=X.device)
     w[torch.arange(S, device=X.device)[:, None], idx] = 1.0
     w = w * mask
-    qs, ts = _dlt_pose(X, x, w)
-    inl = (_reproj_err2(qs[:, None], ts[:, None], X, x) < thres_sq) & mask
-    best = torch.argmax(inl.sum(-1))
+    qs, ts, front, degenerate = _dlt_pose(X, x, w)
+    score = ((_reproj_err2(qs[..., None, :], ts[..., None, :], X, x) < thres_sq)
+             & mask).sum(-1) * ~degenerate[:, None]                  # [S, 2]
+    # P or -P: the one putting the weighted majority of the sample in front
+    # (the reference's rule); where both put as many in front, the one
+    # with more inliers (the reference keeps its eigensolver's sign there)
+    neg = (front[:, 1] > front[:, 0]) | ((front[:, 1] == front[:, 0])
+                                         & (score[:, 1] > score[:, 0]))
+    pick = neg.long()
+    rows = torch.arange(S, device=X.device)
+    qs, ts, score = qs[rows, pick], ts[rows, pick], score[rows, pick]
+    best = torch.argmax(score)
     q, t = qs[best], ts[best]
+    # no hypothesis explains a point: the estimate fails (the reference's
+    # zero-weight polish leaves its pose as it is)
+    found = score[best] > 0
     for _ in range(2):
-        inl = (_reproj_err2(q, t, X, x) < thres_sq) & mask
+        inl = (_reproj_err2(q, t, X, x) < thres_sq) & mask & found
         q, t = refine_pose_gn(q, t, X, x, inl.to(X.dtype))
-    inl = (_reproj_err2(q, t, X, x) < thres_sq) & mask
-    return PnPResult(q=q, t=t, inliers=inl, num_inliers=inl.sum().to(torch.int32))
+    inl = (_reproj_err2(q, t, X, x) < thres_sq) & mask & found
+    return PnPResult(q=q.to(dtype), t=t.to(dtype), inliers=inl,
+                     num_inliers=inl.sum().to(torch.int32))

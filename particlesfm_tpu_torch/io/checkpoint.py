@@ -6,9 +6,15 @@ subset flax writes (maps, arrays, str, bin, ints, floats, bool, nil, and the
 ext types flax registers for numpy data) and returns the same tree of dicts and
 numpy arrays as `flax.serialization.msgpack_restore`.
 
+`msgpack_serialize` is the writer: the bytes `flax.serialization.
+msgpack_serialize` writes for the same tree (dict keys sorted, arrays as the
+ndarray ext type, numpy scalars as the scalar ext type), so JAX loads what
+the port trains.
+
 `raft_state_dict_from_jax` maps the flax RAFT parameter tree onto the port's
 `models.raft.RAFT` state dict: module paths are identical, conv kernels go
-from HWIO to OIHW.
+from HWIO to OIHW. The `*_variables_from_torch` functions are the inverses:
+a port state dict -> flax `params` and `batch_stats` trees.
 """
 from __future__ import annotations
 
@@ -134,6 +140,116 @@ def load_msgpack(path):
     return msgpack_restore(Path(path).read_bytes())
 
 
+_MAX_ARRAY_BYTES = 1 << 30     # flax chunks larger leaves; the port does not
+
+
+class _Encoder:
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A length-prefixed header: the fix form up to fix_max, else the
+        first of `codes` ((code, struct format, max)) whose max holds n."""
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for code, fmt, top in codes:
+            if n <= top:
+                self.out.append(code)
+                self.out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    def int_(self, v: int) -> None:
+        if 0 <= v < 0x80 or -0x20 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+            return
+        table = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+                 (0xCF, ">Q", 0, (1 << 64) - 1)) if v >= 0 else \
+            ((0xD0, ">b", -0x80, -1), (0xD1, ">h", -0x8000, -1),
+             (0xD2, ">i", -0x80000000, -1), (0xD3, ">q", -(1 << 63), -1))
+        for code, fmt, lo, hi in table:
+            if lo <= v <= hi:
+                self.out.append(code)
+                self.out += struct.pack(fmt, v)
+                return
+        raise ValueError(f"msgpack: integer {v} out of range")
+
+    def ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out.append(fixed[n])
+        else:
+            self.head(n, None, -1, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                    (0xC9, ">I", 0xFFFFFFFF)))
+        self.out += struct.pack(">b", code)
+        self.out += payload
+
+    def obj(self, v, sort_keys: bool = True) -> None:
+        if v is None:
+            self.out.append(0xC0)
+        elif isinstance(v, bool):
+            self.out.append(0xC3 if v else 0xC2)
+        elif isinstance(v, int):
+            self.int_(v)
+        elif isinstance(v, float):
+            self.out.append(0xCB)
+            self.out += struct.pack(">d", v)
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self.head(len(b), 0xA0, 31, ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                                         (0xDB, ">I", 0xFFFFFFFF)))
+            self.out += b
+        elif isinstance(v, (bytes, bytearray)):
+            self.head(len(v), None, -1, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                                         (0xC6, ">I", 0xFFFFFFFF)))
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.head(len(v), 0x90, 15, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)))
+            for x in v:
+                self.obj(x, sort_keys)
+        elif isinstance(v, dict):
+            self.head(len(v), 0x80, 15, ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF)))
+            for k in (sorted(v, key=str) if sort_keys else v):
+                self.obj(str(k), sort_keys)
+                self.obj(v[k], sort_keys)
+        elif isinstance(v, np.ndarray):
+            self.ext(_EXT_NDARRAY, _ndarray_to_bytes(v))
+        elif isinstance(v, np.generic):
+            self.ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(v)))
+        elif torch.is_tensor(v):
+            self.obj(v.detach().cpu().numpy(), sort_keys)
+        else:
+            raise TypeError(f"msgpack: cannot serialize {type(v).__name__}")
+
+
+def _ndarray_to_bytes(a: np.ndarray) -> bytes:
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured dtypes are not supported")
+    if a.nbytes > _MAX_ARRAY_BYTES:
+        raise ValueError("msgpack: arrays over 1 GiB (flax chunks them) are not supported")
+    enc = _Encoder()
+    enc.obj(([int(n) for n in a.shape], a.dtype.name, a.tobytes("C")))
+    return bytes(enc.out)
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts, lists, Python scalars, numpy arrays and
+    scalars (torch tensors become numpy arrays) as
+    `flax.serialization.msgpack_serialize` does: dict keys sorted, as the
+    flax writer's tree map leaves them."""
+    enc = _Encoder()
+    enc.obj(tree)
+    return bytes(enc.out)
+
+
+def save_msgpack(path, tree) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack_serialize(tree))
+
+
 def _flatten(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -198,3 +314,95 @@ def motionseg_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         key = {"mean": "running_mean", "var": "running_var"}[leaf]
         sd[f"{mod}.{key}"] = torch.from_numpy(np.asarray(v).copy())
     return sd
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    tree: dict = {}
+    for name, v in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def _np32(t) -> np.ndarray:
+    """A copy of a tensor's or an array's values as numpy."""
+    if torch.is_tensor(t):
+        return t.detach().cpu().numpy().copy()
+    return np.array(t)
+
+
+def conv_bn_variables_from_torch(state_dict: dict) -> tuple:
+    """A RAFT or DepthNet state dict (tensors or numpy arrays by name) ->
+    flax (`params`, `batch_stats`): the inverse of `raft_state_dict_from_jax`
+    (conv OIHW -> HWIO kernel, BatchNorm weight -> scale, running mean/var ->
+    batch_stats mean/var; num_batches_tracked dropped)."""
+    params, stats = {}, {}
+    for name, v in state_dict.items():
+        mod, _, leaf = name.rpartition(".")
+        v = _np32(v)
+        if leaf == "weight":
+            if v.ndim == 4:
+                params[f"{mod}.kernel"] = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+            else:
+                params[f"{mod}.scale"] = v
+        elif leaf == "bias":
+            params[f"{mod}.bias"] = v
+        elif leaf in ("running_mean", "running_var"):
+            stats[f"{mod}.{leaf[8:]}"] = v
+        elif leaf != "num_batches_tracked":
+            raise KeyError(f"unexpected state-dict entry {name}")
+    return _unflatten(params), _unflatten(stats)
+
+
+def conv_bn_arrays_from_jax(params: dict) -> dict:
+    """A flax conv/batch-norm params tree -> numpy arrays by the port's
+    parameter names (`raft_state_dict_from_jax`'s mapping)."""
+    return {k: v.numpy() for k, v in raft_state_dict_from_jax(params).items()}
+
+
+def raft_variables_from_torch(state_dict: dict) -> dict:
+    """The port's RAFT state dict -> flax `params` (plus `batch_stats` for
+    batch-norm encoders, as convert_raft writes them)."""
+    params, stats = conv_bn_variables_from_torch(state_dict)
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def depth_variables_from_torch(state_dict: dict) -> dict:
+    """The port's DepthNet state dict -> flax {"params", "batch_stats"}."""
+    params, stats = conv_bn_variables_from_torch(state_dict)
+    return {"params": params, "batch_stats": stats}
+
+
+_ATTN_PROJ = (".query", ".key", ".value")
+
+
+def motionseg_variables_from_torch(state_dict: dict, nhead: int = 4) -> dict:
+    """The port's TrajOADepth state dict -> flax {"params", "batch_stats"}:
+    the inverse of `motionseg_state_dict_from_jax` (Linear (out, in) ->
+    Dense (in, out); the attention projections back to DenseGeneral's
+    (in, heads, head_dim) and (heads, head_dim, out) kernels and (heads,
+    head_dim) biases; LayerNorm/BatchNorm weight -> scale)."""
+    params, stats = {}, {}
+    for name, v in state_dict.items():
+        mod, _, leaf = name.rpartition(".")
+        a = _np32(v)
+        if leaf == "weight" and a.ndim == 2:
+            k = a.T
+            if mod.endswith(_ATTN_PROJ):
+                k = k.reshape(k.shape[0], nhead, -1)
+            elif mod.endswith(".out"):
+                k = k.reshape(nhead, -1, k.shape[-1])
+            params[f"{mod}.kernel"] = np.ascontiguousarray(k)
+        elif leaf == "weight":
+            params[f"{mod}.scale"] = a
+        elif leaf == "bias":
+            params[f"{mod}.bias"] = a.reshape(nhead, -1) if mod.endswith(_ATTN_PROJ) else a
+        elif leaf in ("running_mean", "running_var"):
+            stats[f"{mod}.{leaf[8:]}"] = a
+        elif leaf != "num_batches_tracked":
+            raise KeyError(f"unexpected state-dict entry {name}")
+    return {"params": _unflatten(params), "batch_stats": _unflatten(stats)}

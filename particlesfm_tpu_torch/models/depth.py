@@ -26,13 +26,41 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
                          antialias=shrinks)
 
 
+class PerImageBatchNorm2d(nn.BatchNorm2d):
+    """flax nn.BatchNorm (momentum 0.99, eps 1e-5) as the reference trains it,
+    vmapped over images (depth/train.py:109-122).
+
+    Train mode: each image is normalized with its own statistics over H x W
+    (the variance as E[x^2] - E[x]^2, flax's fast variance), and the running
+    statistics move by 0.01 of the batch mean of the images' statistics,
+    the variance biased (nn.BatchNorm2d's train mode normalizes over the
+    whole batch, keeps 0.9 and an unbiased variance). Eval mode is
+    nn.BatchNorm2d's."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99):
+        super().__init__(features, eps=eps)
+        self.flax_momentum = momentum
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(-2, -1), keepdim=True)                       # [N, C, 1, 1]
+        var = torch.clamp((x * x).mean(dim=(-2, -1), keepdim=True) - mean * mean, min=0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean.mean(0).flatten())
+            self.running_var.mul_(m).add_((1 - m) * var.mean(0).flatten())
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
+        return (x - mean) * mul + self.bias[:, None, None]
+
+
 class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, features, 3, stride=stride, padding=1)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn1 = PerImageBatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn2 = PerImageBatchNorm2d(features)
         self.skip = None
         if stride != 1 or in_ch != features:
             self.skip = nn.Conv2d(in_ch, features, 1, stride=stride)
@@ -93,3 +121,20 @@ def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
     lo = depth.amin(dim=(-2, -1), keepdim=True)
     hi = depth.amax(dim=(-2, -1), keepdim=True)
     return (depth - lo) / torch.clamp(hi - lo, min=1e-12)
+
+
+def scale_shift_invariant_loss(pred, target, mask):
+    """SSI MSE of one image or a batch of them (the last two axes are H, W):
+    pred aligned to target by the least-squares scale and shift over the
+    masked pixels, then the masked MSE (models/depth.py:80-91)."""
+    m = mask.to(pred.dtype)
+    dims = (-2, -1)
+    n = torch.clamp(m.sum(dims), min=1.0)
+    px = (pred * m).sum(dims) / n
+    tx = (target * m).sum(dims) / n
+    pc = pred - px[..., None, None]
+    cov = (pc * (target - tx[..., None, None]) * m).sum(dims) / n
+    var = (pc ** 2 * m).sum(dims) / n
+    s = cov / torch.clamp(var, min=1e-12)
+    b = tx - s * px
+    return (((s[..., None, None] * pred + b[..., None, None]) - target) ** 2 * m).sum(dims) / n

@@ -30,20 +30,33 @@ def _instance_norm_points(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
 
 
 class _BatchNorm(nn.Module):
-    """Inference BatchNorm as an affine on the last axis (flax nn.BatchNorm
-    with running averages)."""
+    """flax nn.BatchNorm over the last axis (momentum 0.99, eps 1e-5).
 
-    def __init__(self, n: int, eps: float = 1e-5):
+    Eval mode: an affine from the running averages. Train mode: statistics
+    over every axis but the last, padded tracks included, the variance as
+    E[x^2] - E[x]^2 (flax's fast variance); the running averages keep 0.99
+    and take 0.01 of the batch's mean and biased variance."""
+
+    def __init__(self, n: int, eps: float = 1e-5, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(n))
         self.bias = nn.Parameter(torch.zeros(n))
         self.register_buffer("running_mean", torch.zeros(n))
         self.register_buffer("running_var", torch.ones(n))
 
     def forward(self, x):
-        return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+        if not self.training:
+            return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+                    * self.weight + self.bias)
+        dims = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class _Attention(nn.Module):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.corr_lookup import lookup_corr
 
@@ -96,6 +97,52 @@ def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int
         corr = F.avg_pool2d(corr, 2, stride=2)
         pyramid.append(corr.view(B, H * W, corr.shape[-2], corr.shape[-1]))
     return pyramid
+
+
+def _abs(d: torch.Tensor) -> torch.Tensor:
+    """|d| with JAX's derivative at 0 (+1; torch's abs gives 0 there)."""
+    return torch.where(d >= 0, d, -d)
+
+
+def lookup_corr_hat(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """The training lookup: a port of the reference's XLA formulation
+    (raft.py:145-208 `lookup_corr`, selected by `use_pallas=False`, which the
+    JAX trainer uses). Per level, each pixel's 2r+2 map rows around its
+    target are gathered, then the bilinear weights of all (2r+1)^2 offsets
+    are hat functions over the row's lanes (x) and over the gathered rows (y,
+    zero for rows off the map), contracted in turn. Gradients reach both the
+    correlation maps and the coordinates, as JAX's do, kinks included (at a
+    hat's foot the gradient splits in half, as jnp.maximum's does; at its
+    peak it is jnp.abs's +1), so integer coordinates match too.
+
+    The contractions are products summed elementwise, not matmuls, so they
+    stay full float32 whatever the TF32 policy (the reference forces
+    Precision.HIGHEST there). pyramid: [B, P, Hl, Wl] per level; coords
+    [B, P, 2] (x, y) at level-0 scale -> [B, P, L*(2r+1)^2]."""
+    B, P = coords.shape[:2]
+    r = radius
+    nw = 2 * r + 2
+    offs = torch.arange(-r, r + 1, dtype=coords.dtype, device=coords.device)
+    out = []
+    for lvl, corr in enumerate(pyramid):
+        Hl, Wl = corr.shape[-2:]
+        c = coords / (2.0 ** lvl)
+        cx, cy = c[..., 0], c[..., 1]                                   # [B, P]
+        y0 = torch.floor(cy).to(torch.int64) - r
+        ri = y0[..., None] + torch.arange(nw, device=coords.device)     # [B, P, nw]
+        rows = corr.gather(2, ri.clamp(0, Hl - 1)[..., None].expand(B, P, nw, Wl))
+        lanes = torch.arange(Wl, dtype=coords.dtype, device=coords.device)
+        zero = torch.zeros((), dtype=coords.dtype, device=coords.device)
+        tx = cx[..., None] + offs                                       # [B, P, 9]
+        Xw = torch.maximum(zero, 1.0 - _abs(lanes[:, None] - tx[..., None, :]))
+        ty = cy[..., None] + offs
+        yin = ((ri >= 0) & (ri < Hl)).to(coords.dtype)
+        Yw = torch.maximum(zero, 1.0 - _abs(ri.to(coords.dtype)[..., None]
+                                            - ty[..., None, :])) * yin[..., None]
+        t1 = (rows[..., None] * Xw[..., None, :, :]).sum(-2)            # [B, P, nw, 9(dx)]
+        val = (Yw[..., None] * t1[..., None, :]).sum(-3)                # [B, P, 9(dy), 9(dx)]
+        out.append(val.reshape(B, P, (2 * r + 1) ** 2))
+    return torch.cat(out, dim=-1)
 
 
 class BasicMotionEncoder(nn.Module):
@@ -185,17 +232,21 @@ class RAFT(nn.Module):
     configuration of the repo's checkpoint. The GRU iterations are a Python
     loop over one shared update block. The `lookup` attribute is the
     correlation lookup, `ops.corr_lookup.lookup_corr` (kernel K1 on CUDA, plain
-    on the CPU); chip_smoke.py swaps in `lookup_corr_plain` to hold the net's
-    flow with K1 against the plain version on the card.
+    on the CPU); the trainers select `lookup_corr_hat`, as the JAX trainer runs
+    its XLA lookup; chip_smoke.py swaps in `lookup_corr_plain` to hold the
+    net's flow with K1 against the plain version on the card. `remat`
+    recomputes each GRU iteration in the backward pass
+    (`torch.utils.checkpoint`, the flax model's nn.remat).
     """
 
     def __init__(self, num_levels=4, radius=4, hidden_dim=128, context_dim=128,
                  enc_dim=256, enc_base=64, motion_dims=(256, 192, 128, 64, 128),
-                 head_hidden=256, mask_hidden=256, cnet_norm="batch"):
+                 head_hidden=256, mask_hidden=256, cnet_norm="batch", remat=False):
         super().__init__()
         self.num_levels = num_levels
         self.radius = radius
         self.hidden_dim = hidden_dim
+        self.remat = remat
         self.lookup = lookup_corr
         self.fnet = BasicEncoder(enc_dim, "instance", enc_base)
         self.cnet = BasicEncoder(hidden_dim + context_dim, cnet_norm, enc_base)
@@ -203,7 +254,10 @@ class RAFT(nn.Module):
             num_levels * (2 * radius + 1) ** 2, hidden_dim, context_dim,
             tuple(motion_dims), head_hidden, mask_hidden)
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 20):
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 20,
+                all_iters: bool = False):
+        """all_iters: every iteration's upsampled flow, with that iteration's
+        mask, [B, iters, H, W, 2] (the sequence loss's input, raft.py:367)."""
         B = image1.shape[0]
         imgs = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2)
         imgs = 2.0 * (imgs / 255.0) - 1.0
@@ -216,24 +270,38 @@ class RAFT(nn.Module):
         del fmaps
         H8, W8 = net.shape[-2:]
         ys, xs = torch.meshgrid(
-            torch.arange(H8, dtype=torch.float32, device=net.device),
-            torch.arange(W8, dtype=torch.float32, device=net.device),
+            torch.arange(H8, dtype=net.dtype, device=net.device),
+            torch.arange(W8, dtype=net.dtype, device=net.device),
             indexing="ij",
         )
         coords0 = torch.stack([xs, ys], dim=0).expand(B, 2, H8, W8)
-        coords1 = coords0
-        for _ in range(iters):
+
+        def step(net, coords1):
             pts = coords1.permute(0, 2, 3, 1).reshape(B, H8 * W8, 2).contiguous()
             corr = self.lookup(pyramid, pts, self.radius)        # [B, P, L*K]
             corr = corr.view(B, H8, W8, -1).permute(0, 3, 1, 2)
             net, delta = self.update_block(net, inp, corr, coords1 - coords0)
             coords1 = coords1 + delta
+            if all_iters:
+                return net, coords1, upsample_flow_convex(coords1 - coords0,
+                                                          self.update_block.mask(net))
+            return net, coords1, None
+
+        coords1, ups = coords0, []
+        for _ in range(iters):
+            if self.remat and torch.is_grad_enabled():
+                net, coords1, up = checkpoint(step, net, coords1, use_reentrant=False)
+            else:
+                net, coords1, up = step(net, coords1)
+            ups.append(up)
+        if all_iters:
+            return torch.stack(ups, dim=1).permute(0, 1, 3, 4, 2)
         # only the last iteration's mask is used (raft.py:370)
         up = upsample_flow_convex(coords1 - coords0, self.update_block.mask(net))
         return up.permute(0, 2, 3, 1)
 
 
-def compact_raft() -> RAFT:
+def compact_raft(remat: bool = False) -> RAFT:
     """The small configuration of the repo's checkpoint (raft.py:373)."""
     return RAFT(
         hidden_dim=64,
@@ -244,4 +312,5 @@ def compact_raft() -> RAFT:
         head_hidden=128,
         mask_hidden=128,
         cnet_norm="instance",
+        remat=remat,
     )

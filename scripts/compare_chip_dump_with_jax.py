@@ -32,7 +32,11 @@ the seg stage's model input (u16 tracks) with the card's logits. Prints:
 - [sfm-pnp] the incremental run's last PnP call (the round where every
   candidate failed) on the card's inputs: inlier counts of the card, the
   port on the CPU and JAX with the same key, and where in the image its
-  2D points lie.
+  2D points lie;
+- [stride2] the flow stage of each package (the port on the CPU) on the
+  dump's 4 frames at flow.infer_scale=0.5 with the 4 px stride-2 fallback:
+  the share of stride-2 pixels each package takes from the composition,
+  and where the two decisions differ.
 """
 from __future__ import annotations
 
@@ -264,6 +268,58 @@ def compare_pnp(z) -> None:
           f"5-95% {np.percentile(depth, 5):.3f}..{np.percentile(depth, 95):.3f}")
 
 
+def compare_stride2(z) -> None:
+    import tempfile
+
+    import torch
+
+    from particlesfm_tpu.ops import flow_ops as jops
+    from particlesfm_tpu.pipeline import run as JR
+    from particlesfm_tpu.pipeline import stages as JS
+    from particlesfm_tpu.utils.config import Config as JConfig
+    from particlesfm_tpu_torch.pipeline import run as PR
+    from particlesfm_tpu_torch.pipeline import stages as PS
+    from particlesfm_tpu_torch.utils.config import Config as PConfig
+
+    images = z["images"]
+    used = {}
+
+    def config(cls):
+        cfg = cls()
+        cfg.flow.infer_scale = 0.5
+        cfg.flow.stride2_compose_disagree_px = 4.0
+        cfg.flow.selfcal = False
+        return cfg
+
+    def keep(pkg, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            used.setdefault(pkg, []).append(np.asarray(out[1].cpu() if torch.is_tensor(out[1])
+                                                       else out[1]))
+            return out
+        return wrapped
+
+    orig_j, orig_p = jops.stride2_compose_fallback, PS.stride2_compose_fallback
+    jops.stride2_compose_fallback = keep("JAX", orig_j)
+    PS.stride2_compose_fallback = keep("port (CPU)", orig_p)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = config(JConfig)
+            JS.flow_stage(images.astype(np.float32), Path(tmp) / "j", cfg,
+                          JR._load_raft_apply(cfg), log=lambda *a: None)
+            cfg = config(PConfig)
+            PS.flow_stage(images.astype(np.float32), Path(tmp) / "p", cfg, "cpu",
+                          PR._load_raft_apply(cfg, "cpu"), log=lambda *a: None)
+    finally:
+        jops.stride2_compose_fallback, PS.stride2_compose_fallback = orig_j, orig_p
+    T, H, W = images.shape[:3]
+    for k, name in enumerate(("flow_f2", "flow_b2")):
+        uj, up = used["JAX"][k], used["port (CPU)"][k]
+        print(f"[stride2] {name} on the dump's {T} frames at {W}x{H}, infer_scale 0.5, 4 px: "
+              f"fallback share JAX {100 * uj.mean():.3f}%, port (CPU) {100 * up.mean():.3f}% "
+              f"of {uj.size} pixels; decisions differ on {int((uj != up).sum())} pixels")
+
+
 def _centers_w2c(w2c) -> np.ndarray:
     R, t = w2c[:, :, :3], w2c[:, :, 3]
     return -np.einsum("nji,nj->ni", R, t)
@@ -311,6 +367,7 @@ def main(argv=None) -> int:
         compare_sfm_modes(z, Path(args.dump).parent)
     if "inc_pnp_X" in z.files:
         compare_pnp(z)
+    compare_stride2(z)
     return 0
 
 

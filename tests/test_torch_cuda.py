@@ -1,6 +1,6 @@
 """CUDA tests of the port: each kernel against its plain version, and the
-torch-op stages (self-calibration, depth, motion seg) on the card against
-the same code on the CPU.
+torch-op stages (self-calibration, depth, motion seg) and one step of each
+trainer on the card against the same code on the CPU.
 
 Marked `cuda`; they skip without a CUDA device. This file imports torch and
 the port only (no JAX), so it runs on a GPU machine without the reference:
@@ -86,6 +86,7 @@ def _check(pyr, coords, radius):
 
 @pytest.mark.parametrize("B,H8,W8,levels,radius", [
     (8, 55, 128, 4, 4),      # the main path's block at 1024x436
+    (4, 32, 40, 4, 4),       # the flow trainer's validation (256x320, batch 4)
     (3, 13, 21, 4, 4),       # odd sizes: level 3 is 1x2
     (2, 16, 24, 2, 1),
     (1, 9, 10, 1, 3),
@@ -255,3 +256,72 @@ def test_segment_sums_card_are_deterministic(cuda):
     r = row_segment_sum(fidx, w, 48)
     ref = torch.zeros(1000, 48, dtype=torch.float64).scatter_add_(1, fidx.cpu(), w.cpu().double())
     torch.testing.assert_close(r.cpu().double(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _train_step_both(cuda, make, step):
+    """(loss, gradient global norm) of one step on the card and on the CPU
+    from the same initial model (`make()` on the CPU, copied to the card)."""
+    import copy
+
+    from particlesfm_tpu_torch.utils.optim import global_norm
+
+    base = make()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = copy.deepcopy(base).to(dev)
+        loss = step(model, dev)
+        out.append((float(loss), float(global_norm([p.grad.cpu() for p in model.parameters()]))))
+    return out
+
+
+@pytest.mark.parametrize("trainer", ["flow", "depth", "motionseg"])
+def test_train_step_card_matches_cpu(cuda, trainer):
+    """One training step of each trainer from the same flax-initialized
+    parameters and batch, TF32 off: loss within 1e-4 relative, gradient
+    global norm within 1e-3."""
+    from particlesfm_tpu_torch.utils.optim import flax_init_
+
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    if trainer == "flow":
+        from particlesfm_tpu_torch.flow import train as ft
+        from particlesfm_tpu_torch.models.raft import compact_raft, lookup_corr_hat
+
+        b = [torch.from_numpy(rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32))
+             for _ in range(2)] + [torch.from_numpy(rng.normal(0, 3, (2, 64, 96, 2))
+                                                    .astype(np.float32))]
+
+        def make():
+            m = flax_init_(compact_raft(remat=True), gen)
+            m.lookup = lookup_corr_hat
+            return m
+
+        def step(m, dev):
+            return ft.loss_and_grads(m, *(t.to(dev) for t in b), 3, use_tf32=False)
+    elif trainer == "depth":
+        from particlesfm_tpu_torch.depth import train as dt
+        from particlesfm_tpu_torch.models.depth import DepthNet
+
+        bi = torch.from_numpy(rng.uniform(0, 255, (2, 64, 64, 3)).astype(np.float32))
+        bd = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64)).astype(np.float32))
+
+        def make():
+            return flax_init_(DepthNet(), gen).train()
+
+        def step(m, dev):
+            return dt.loss_and_grads(m, bi.to(dev), bd.to(dev), use_tf32=False)
+    else:
+        from particlesfm_tpu_torch.models.motionseg import TrajOADepth
+        from particlesfm_tpu_torch.motionseg import train as mt
+        from particlesfm_tpu_torch.motionseg.synth3d import synth3d_batch
+
+        batch = synth3d_batch(rng, B=2, num_static=200, num_dyn_max=80, depth_hw=(30, 53))
+
+        def make():
+            return flax_init_(TrajOADepth(input_hw=(30, 53)), gen).train()
+
+        def step(m, dev):
+            return mt.loss_and_grads(m, batch)[0]
+    (lc, gc), (lp, gp) = _train_step_both(cuda, make, step)
+    assert np.isfinite(lc) and abs(lc - lp) <= 1e-4 * abs(lp)
+    assert abs(gc - gp) <= 1e-3 * gp

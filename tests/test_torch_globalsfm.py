@@ -10,6 +10,8 @@ sets, configurations, iteration counts where the stop test is far from its
 threshold), and 1e-4 on rotations (rad), unit directions and relative costs
 unless a test says otherwise.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -504,6 +506,110 @@ def test_pnp_reference_hypotheses_hang_on_rounding(scene):
                                u=_t(tv.threefry_uniform(tv.threefry_key(v), (64, 6))))
     assert int(rp.num_inliers) >= min(counts)
     assert _qang(rp.q, sc["q"][v]) < 3 * max(errs) + 1e-3
+
+
+def test_pnp_degenerate_call_same_on_every_eigensolver(monkeypatch):
+    """F1: a degenerate PnP of the incremental mapper decided differently on
+    the card and on the CPU. The inputs are image 47's PnP on a
+    30,000-track subset of seq_03_dyn (the port's CPU mapper, from a card
+    run's labeled tracks; its 3D points are nearly planar, centered
+    singular values 24.9, 18.9, 1.8). Some 6-point hypotheses put their
+    whole sample in front of both P and -P, and the reference then keeps
+    whichever sign its eigensolver returned: with the null vectors negated
+    (as another eigensolver may return them) JAX's count falls from 2042 to
+    0 under 1 +- 2^-22 scalings of the points. The port's count (float64,
+    the sign fixed, the tie taken by inliers) is the same under either
+    sign, at 1 and 4 torch threads and under the scalings, and equals the
+    reference's own inlier set on the unscaled inputs."""
+    z = np.load(Path(__file__).parent / "fixtures" / "pnp_degenerate_image47.npz")
+    X, x, m, u, thr = z["X"], z["x"], z["mask"], z["u"], float(z["thres_sq"])
+    scales = (1.0, 1 + 2 ** -22, 1 - 2 ** -22)
+    j_eigh, t_eigh = jnp.linalg.eigh, torch.linalg.eigh
+    jax_counts, port_counts = {}, set()
+    for flip in (False, True):
+        if flip:
+            monkeypatch.setattr(jnp.linalg, "eigh", lambda a: (lambda w, v: (w, -v))(*j_eigh(a)))
+            monkeypatch.setattr(torch.linalg, "eigh", lambda a: (lambda w, v: (w, -v))(*t_eigh(a)))
+        jfn = jax.jit(lambda *a: jpnp.estimate_pose_pnp.__wrapped__(*a))   # traced anew
+        for s in scales:
+            rj = jfn(jax.random.PRNGKey(147), jnp.asarray(X * np.float32(s)), jnp.asarray(x),
+                     jnp.asarray(m), np.float32(thr))
+            jax_counts[flip, s] = int(rj.num_inliers)
+            if not flip and s == 1.0:
+                j_inliers = np.asarray(rj.inliers)
+        n = torch.get_num_threads()
+        for threads in (1, 4):
+            torch.set_num_threads(threads)
+            for s in scales:
+                rp = pnp.estimate_pose_pnp(_t(X * np.float32(s)), _t(x), _t(m), thr, u=_t(u))
+                port_counts.add(int(rp.num_inliers))
+                if s == 1.0:
+                    np.testing.assert_array_equal(_n(rp.inliers), j_inliers)
+        torch.set_num_threads(n)
+    assert jax_counts[False, 1.0] >= 2000 and min(jax_counts.values()) == 0
+    assert port_counts == {jax_counts[False, 1.0]}
+
+
+def _jax_pnp_x64(X, x, m, u, thr):
+    """The reference's estimate_pose_pnp body (globalsfm/pnp.py:105-133) in
+    float64 on the injected draws: its inlier count."""
+    with jax.enable_x64(True):
+        Xd, xd, md = jnp.asarray(X, jnp.float64), jnp.asarray(x, jnp.float64), jnp.asarray(m)
+        count = jnp.maximum(jnp.sum(md.astype(jnp.int32)), 1)
+        idx = jnp.argsort(~md)[(jnp.asarray(u) * count.astype(jnp.float32)).astype(jnp.int32)]
+
+        def hyp(si):
+            w = jnp.zeros((X.shape[0],), jnp.float64).at[si].set(1.0) * md
+            q, t, _ = jpnp._dlt_pose(Xd, xd, w)
+            return q, t, jnp.sum((jpnp._reproj_err2(q, t, Xd, xd) < thr) & md)
+
+        qs, ts, sc = jax.vmap(hyp)(idx)
+        q, t = qs[jnp.argmax(sc)], ts[jnp.argmax(sc)]
+        for _ in range(2):
+            inl = (jpnp._reproj_err2(q, t, Xd, xd) < thr) & md
+            q, t = jpnp.refine_pose_gn(q, t, Xd, xd, inl.astype(jnp.float64))
+        return int(((jpnp._reproj_err2(q, t, Xd, xd) < thr) & md).sum()), np.asarray(idx)
+
+
+def _other_null_vector(eigh, where):
+    """`eigh` returning, for matrices with a 2-D null space, another unit
+    vector of that space as the first eigenvector (as another eigensolver
+    may)."""
+    def rotated(a):
+        w, v = eigh(a)
+        deg = (w[..., 1] <= 1e-14 * w[..., -1])[..., None]
+        first = where(deg, (v[..., :, 0] + v[..., :, 1]) / 2 ** 0.5, v[..., :, 0])
+        return w, (v.at[..., :, 0].set(first) if hasattr(v, "at")
+                   else torch.cat([first[..., None], v[..., :, 1:]], -1))
+    return rotated
+
+
+def test_pnp_sample_with_a_repeated_point_gives_no_hypothesis(monkeypatch):
+    """F1: image 32's first PnP in the incremental run_pipeline on
+    seq_03_dyn (protocol scale, the card's inputs) counted 99 inliers on the
+    card and 0 on the CPU. Hypothesis 56 of the reference's draws takes one
+    point twice: 5 points leave the DLT a 2-D null space, and the reference
+    keeps whatever vector of it the eigensolver returns. In float64 on the
+    same draws (JAX with x64) it counts 99 with its eigensolver's vector and
+    0 with another vector of that space. The port gives such a sample no
+    hypothesis: 0 either way, at 1 and 4 torch threads."""
+    z = np.load(Path(__file__).parent / "fixtures" / "pnp_repeated_point_image32.npz")
+    X, x, m, u, thr = z["X"], z["x"], z["mask"], z["u"], float(z["thres_sq"])
+    n_jax, idx = _jax_pnp_x64(X, x, m, u, thr)
+    assert [h for h in range(len(idx)) if len(set(idx[h].tolist())) < 6] == [56]
+    counts = set()
+    for other in (False, True):
+        if other:
+            monkeypatch.setattr(jnp.linalg, "eigh", _other_null_vector(jnp.linalg.eigh, jnp.where))
+            monkeypatch.setattr(torch.linalg, "eigh",
+                                _other_null_vector(torch.linalg.eigh, torch.where))
+            assert (n_jax, _jax_pnp_x64(X, x, m, u, thr)[0]) == (99, 0)
+        n = torch.get_num_threads()
+        for threads in (1, 4):
+            torch.set_num_threads(threads)
+            counts.add(int(pnp.estimate_pose_pnp(_t(X), _t(x), _t(m), thr, u=_t(u)).num_inliers))
+        torch.set_num_threads(n)
+    assert counts == {0}
 
 
 def _bearings(sc):

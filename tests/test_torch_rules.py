@@ -62,6 +62,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     assert load_flow_apply_pairs(DEFAULT_RAFT_CKPT, device="cpu").refines is False
 
 
+def test_trainers_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """The three training entry points raise without CUDA unless the CPU
+    is asked for; none falls back."""
+    from particlesfm_tpu_torch.depth import train as depth_train
+    from particlesfm_tpu_torch.flow import train as flow_train
+    from particlesfm_tpu_torch.motionseg import train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, args in ((flow_train.main, ["--out", str(tmp_path / "f.msgpack")]),
+                       (depth_train.main, ["--out", str(tmp_path / "d.msgpack")]),
+                       (train_cli.main, ["--synthetic", "--out_dir", str(tmp_path / "s")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(args)
+
+
 # SfM options once refused by the port, each run on a ground-truth flow
 # scene (tests/flow_scenes.py, as tests/test_torch_sfm_slice.py runs it)
 SFM_OPTIONS = [
