@@ -63,15 +63,32 @@ Phases (each prints its lines; any failure exits non-zero):
                trainer's validation (`[kernel-val]`, 32x40 grid, batch 4:
                4-byte copies, as level widths 10 and 5 are not multiples of
                4) held against the plain lookup; train_cli --synthetic3d.
+  8. sweep   — a multi-sequence evaluation sweep as a user runs it: renders
+               hb_01_dyn (held-out family B, scripts/make_heldout_set.py's
+               recipe) and seq_01_dyn (family A), 48 frames at 1024x436 each
+               with .cam poses and dynamic masks; runs `run.main(["--root_dir",
+               ...])` in-process on the card (each net built and each
+               checkpoint parsed once, 192 K1 launches per sequence, model bins
+               and >= 3 finite converted poses each; stage times, the loaders'
+               seconds per sequence and ATE against the renderer printed);
+               `eval.sintel` on it (errors_ate.txt equals evaluate_sequence on
+               the same files) and `trajectory_label_metrics` of each labeled
+               track set; `sfm.visualize` on each model (PLY vertices = points
+               + 5 x cameras, the HTML's positions are the model's xyz);
+               `write_overlay_video` on hb_01_dyn (48 PNGs, a GIF, an AVI read
+               back as 48 frames); one 8-pair flow block under
+               `utils.profiling.trace`, whose Chrome trace must name K1.
 The last two lines are the card's `name, power.limit` and
 {"ok": true, "device": {...}}; the line before them lists the kernels (the
 `*_net` keys are the `[kernel-net]` numbers, the `*_half` keys those of
 `[kernel-half]` and the half-scale flow stage's launches, the `*_val` keys
-those of `[kernel-val]` and `launches_train` the flow trainer's).
+those of `[kernel-val]`, `launches_train` the flow trainer's and
+`launches_sweep` the sweep's).
 """
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import math
 import multiprocessing as mp
@@ -94,6 +111,8 @@ FRAMES = 48                    # the sequence length of the acceptance set
 GT_PAIRS = 8                   # stride-1 pairs scored against ground truth
 SFM_DUMP_TRACKS = 30_000       # the labeled-track subset of the incremental card-vs-CPU
                                # check and the JAX compare (--dump)
+SWEEP_SEQS = ("hb_01_dyn", "seq_01_dyn")    # [sweep], in the --root_dir run's (sorted) order
+HELDOUT_SEED = 11              # scripts/make_heldout_set.py's default --seed
 
 
 def log(msg: str) -> None:
@@ -158,6 +177,14 @@ def render_sequence(frames: int, img_dir: Path) -> dict:
                 dynamic=np.stack([dyn[i] for i in range(frames)]),
                 focal=float(sc.K[0]),
                 w2c=np.stack([sc.world_to_cam(i) for i in range(frames)]))
+
+
+def save_tracks_compressed(src: Path, dst: Path) -> None:
+    """A tracks.npz rewritten compressed for a dump (TrackArrays.load reads
+    both): a 30,000-track subset shrinks from 14.4 MB to ~2 MB, which keeps
+    a --dump with the [sweep] subsets under 64 MiB."""
+    z = np.load(src)
+    np.savez_compressed(dst, **{k: z[k] for k in z.files})
 
 
 def ptxas_lines(log_text: str, entry: str):
@@ -394,7 +421,7 @@ def check_selfcal(out_dir: Path, msgs, flows, gt_focal: float) -> dict:
 
 def check_depth(dev, cfg, depths, img_dir: Path, gt_inv_depth) -> dict:
     """48 finite frames each spanning exactly [0, 1]; the run's depth apply
-    (`_load_depth_apply`: blocks of 4 frames, float16 rounding) on the card
+    (`_build_depth_apply`: blocks of 4 frames, float16 rounding) on the card
     against the CPU on the first block of 4 full frames: normalized depth
     before the rounding within 1e-3, and the card's rounded output against
     the run's own depth of those frames; Pearson correlation with GT."""
@@ -402,7 +429,7 @@ def check_depth(dev, cfg, depths, img_dir: Path, gt_inv_depth) -> dict:
 
     from particlesfm_tpu_torch.io.images import load_image_stack
     from particlesfm_tpu_torch.models import depth as depth_mod
-    from particlesfm_tpu_torch.pipeline.run import _load_depth_apply
+    from particlesfm_tpu_torch.pipeline import run as R
     from particlesfm_tpu_torch.pipeline.stages import upload_frame_stack
 
     if depths.shape[0] != FRAMES or not bool(torch.isfinite(depths).all()):
@@ -414,13 +441,16 @@ def check_depth(dev, cfg, depths, img_dir: Path, gt_inv_depth) -> dict:
     images, _ = load_image_stack(img_dir)
     stack = upload_frame_stack(images[:n], "cpu")
     # the apply binds normalize_depth when it is built: wrap it to keep the
-    # normalized depth before the float16 rounding
+    # normalized depth before the float16 rounding, and build the applies
+    # afresh, outside the pipeline's apply cache (neither the run's cached
+    # apply nor these wrapped ones may serve another run)
     orig, raw, rounded = depth_mod.normalize_depth, [], []     # card, CPU
+    ckpt = cfg.depth.checkpoint or R.DEFAULT_DEPTH_CKPT
     try:
         for d in (dev, torch.device("cpu")):
             kept = []
             depth_mod.normalize_depth = lambda x, kept=kept: kept.append(orig(x)) or kept[-1]
-            rounded.append(_load_depth_apply(cfg, d)(stack.to(d)).cpu())
+            rounded.append(R._build_depth_apply(ckpt, cfg.depth.base, d)(stack.to(d)).cpu())
             raw.append(torch.cat(kept).cpu())
     finally:
         depth_mod.normalize_depth = orig
@@ -1639,6 +1669,320 @@ def phase_train(dev) -> dict:
     return res
 
 
+
+# ------------------------------------------------------------------- sweep --
+
+def _sweep_scene(name: str, frames: int, h: int, w: int):
+    """seq_01_dyn: family A, sequence 1 of scripts/make_acceptance_set.py
+    (seed 0). hb_01_dyn: family B, sequence 1 of scripts/make_heldout_set.py
+    (its default seed 11; odd sequences are dynamic), the same draws."""
+    if name == "seq_01_dyn":
+        return _scene(frames, seed=0, idx=1, h=h, w=w)
+    from particlesfm_tpu_torch.synth.family_b import random_box_scene
+
+    rng = np.random.default_rng(2000003 * HELDOUT_SEED + 1)
+    focal = 1.2 * w * rng.uniform(0.85, 1.15)
+    return random_box_scene(
+        rng, num_views=frames, height=h, width=w, focal=focal,
+        num_dynamic=int(rng.integers(1, 3)),
+        motion_scale=float(rng.uniform(0.5, 1.1)),
+        yaw_scale=float(rng.uniform(0.5, 1.5)),
+        num_boxes=int(rng.integers(8, 15)),
+    )
+
+
+def _render_sweep_frame(job):
+    """Worker: frame i of sweep sequence `name` as PPM, its .cam (K and
+    world-to-camera) and its dynamic mask as PNG; returns the mask."""
+    from PIL import Image
+
+    from particlesfm_tpu_torch.eval.pose_eval import write_sintel_cam
+
+    name, i, frames, h, w, root = job
+    sc = _sweep_scene(name, frames, h, w)
+    root = Path(root)
+    Image.fromarray(sc.render(i)).save(root / "seqs" / name / "images" / f"{i:06d}.ppm")
+    write_sintel_cam(root / "gt" / name / f"{i:06d}.cam", sc.intrinsics_matrix(),
+                     sc.world_to_cam(i))
+    dyn = sc.gt_dynamic(i)
+    Image.fromarray((dyn * 255).astype(np.uint8)).save(root / "gt" / name / "dyn" / f"{i:06d}.png")
+    return name, i, dyn
+
+
+def render_sweep(root: Path, frames: int, h: int, w: int) -> dict:
+    """Both sweep sequences on one host pool: name -> dynamic masks [T, H, W]."""
+    for name in SWEEP_SEQS:
+        (root / "seqs" / name / "images").mkdir(parents=True, exist_ok=True)
+        (root / "gt" / name / "dyn").mkdir(parents=True, exist_ok=True)
+    jobs = [(name, i, frames, h, w, str(root)) for name in SWEEP_SEQS for i in range(frames)]
+    dyn = {name: [None] * frames for name in SWEEP_SEQS}
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        for name, i, d in pool.imap_unordered(_render_sweep_frame, jobs):
+            dyn[name][i] = d
+    return {name: np.stack(v) for name, v in dyn.items()}
+
+
+class _SweepProbe:
+    """Instruments a `--root_dir` run in-process: per sequence the K1
+    launches, the loaders' seconds (device-synchronized), the run's messages
+    and result; over the run, how often each net is constructed and each
+    checkpoint parsed. `restore()` undoes every patch."""
+
+    def __init__(self, dev):
+        from particlesfm_tpu_torch.flow import infer
+        from particlesfm_tpu_torch.io import checkpoint
+        from particlesfm_tpu_torch.models.depth import DepthNet
+        from particlesfm_tpu_torch.models.motionseg import TrajOADepth
+        from particlesfm_tpu_torch.models.raft import RAFT
+        from particlesfm_tpu_torch.ops import corr_lookup as cl
+        from particlesfm_tpu_torch.pipeline import run as R
+
+        self.seqs, self.builds, self.parsed, self._undo = [], {}, [], []
+        self._patch(R, "run_pipeline", self._run(R.run_pipeline, cl))
+        for name in ("_load_raft_apply", "_load_depth_apply", "_load_seg_apply"):
+            self._patch(R, name, self._loader(getattr(R, name), dev))
+        for cls, tag in ((RAFT, "raft"), (DepthNet, "depth"), (TrajOADepth, "seg")):
+            self._patch(cls, "__init__", self._counted_init(cls.__init__, tag))
+        parse = checkpoint.load_msgpack
+
+        def counted_parse(path):
+            self.parsed.append(Path(str(path)).name)
+            return parse(path)
+
+        self._patch(checkpoint, "load_msgpack", counted_parse)
+        self._patch(infer, "load_msgpack", counted_parse)
+
+    def _patch(self, owner, name, fn):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+    def _run(self, run_pipeline, cl):
+        def run_one(img_dir, out_dir, cfg, log=print, device="cuda"):
+            st = dict(name=Path(img_dir).parent.name, out_dir=Path(out_dir), msgs=[],
+                      loader_s=0.0, device=device)
+            self.seqs.append(st)
+            k0, v0 = cl.launches, cl.vec_launches
+            t0 = time.perf_counter()
+            st["rec"] = run_pipeline(img_dir, out_dir, cfg, log=st["msgs"].append,
+                                     device=device)
+            st["wall"] = time.perf_counter() - t0
+            st["launches"], st["vec_launches"] = cl.launches - k0, cl.vec_launches - v0
+            return st["rec"]
+        return run_one
+
+    def _loader(self, fn, dev):
+        import torch
+
+        def timed(cfg, device):
+            t0 = time.perf_counter()
+            out = fn(cfg, device)
+            torch.cuda.synchronize(dev)
+            self.seqs[-1]["loader_s"] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def _counted_init(self, init, tag):
+        def counted(obj, *a, **kw):
+            self.builds[tag] = self.builds.get(tag, 0) + 1
+            init(obj, *a, **kw)
+        return counted
+
+
+def phase_sweep(dev, dump_dir=None) -> dict:
+    """Phase [sweep]: render hb_01_dyn (held-out family B) and seq_01_dyn
+    (family A), 48 frames at 1024x436 each, run the user's `--root_dir`
+    command in-process on the card, score it with the port's eval tools and
+    look at it with its viewer and overlay tools. Returns the K1 launches
+    of the run."""
+    import torch
+
+    from particlesfm_tpu_torch.eval import sintel
+    from particlesfm_tpu_torch.eval.pose_eval import (evaluate_sequence, load_pose_dir,
+                                                      read_sintel_cam, summarize)
+    from particlesfm_tpu_torch.eval.traj_iou import trajectory_label_metrics
+    from particlesfm_tpu_torch.io import colmap_model as cm
+    from particlesfm_tpu_torch.io.avi import read_mjpeg_avi_frames
+    from particlesfm_tpu_torch.io.images import load_image_stack
+    from particlesfm_tpu_torch.motionseg.visualize import write_overlay_video
+    from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.sfm import visualize
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+    from particlesfm_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    root = WORK / "sweep"
+    h, w, T = SEQ["h"], SEQ["w"], FRAMES
+    t0 = time.perf_counter()
+    dyn = render_sweep(root, T, h, w)
+    t_render = time.perf_counter() - t0
+    log(f"[sweep] rendered {', '.join(SWEEP_SEQS)}: {T} frames each at {w}x{h} with .cam "
+        f"poses and dynamic masks in {t_render:.1f}s (host pool)")
+
+    # the user's command, as a fresh process runs it: no apply cached yet
+    R._APPLY_CACHE.clear()
+    probe = _SweepProbe(dev)
+    try:
+        cl.reset_launches()
+        t0 = time.perf_counter()
+        rc = R.main(["--root_dir", str(root / "seqs")])
+        t_run = time.perf_counter() - t0
+        launches = cl.launches
+    finally:
+        probe.restore()
+    if rc != 0:
+        fail(f"sweep: run_pipeline.main --root_dir returned {rc}")
+    if [s["name"] for s in probe.seqs] != list(SWEEP_SEQS):
+        fail(f"sweep: the --root_dir run took {[s['name'] for s in probe.seqs]}")
+    if probe.builds != {"raft": 1, "depth": 1, "seg": 1}:
+        fail(f"sweep: nets built {probe.builds} times over the two sequences (once each)")
+    if sorted(probe.parsed) != sorted(p.name for p in (
+            R.DEFAULT_RAFT_CKPT, R.DEFAULT_DEPTH_CKPT, R.DEFAULT_SEG_CKPT)):
+        fail(f"sweep: checkpoints parsed {probe.parsed} (each once)")
+    cfg = R.config_from_args(R.build_arg_parser().parse_args(       # the run's config
+        ["--image_dir", "-", "--output_dir", "-"]))
+    expect = math.ceil((2 * (T - 1) + 2 * (T - 2)) / cfg.flow.per_device) * cfg.flow.iters
+    results, models = [], {}
+    for st in probe.seqs:
+        name, out = st["name"], st["out_dir"]
+        if st["launches"] != expect or st["vec_launches"] != st["launches"]:
+            fail(f"sweep: {name} launched K1 {st['launches']} times ({st['vec_launches']} "
+                 f"16-byte), expected {expect}, all 16-byte")
+        rec = st["rec"]
+        reg = rec.registered
+        model = out / "sfm" / "model"
+        if not all((model / f).exists() for f in ("cameras.bin", "images.bin", "points3D.bin")):
+            fail(f"sweep: {name} wrote no model bins")
+        _, images, points = cm.read_model_binary(model)
+        est = load_pose_dir(out / "colmap_outputs_converted" / "poses")
+        n_reg = int(reg.sum())
+        if n_reg < 3 or len(images) != n_reg or len(est) != n_reg:
+            fail(f"sweep: {name}: {n_reg} registered, {len(images)} in images.bin, "
+                 f"{len(est)} converted poses (>= 3, all equal)")
+        if not (np.isfinite(rec.qvec[reg]).all() and np.isfinite(rec.tvec[reg]).all()
+                and all(np.isfinite(P).all() for P in est.values())):
+            fail(f"sweep: {name} has non-finite poses")
+        gt = {p.stem: read_sintel_cam(p)[1] for p in sorted((root / "gt" / name).glob("*.cam"))}
+        res = evaluate_sequence(est, gt, name, min_registered_ratio=0.0)
+        results.append(evaluate_sequence(est, gt, name))
+        timings = (out / "timings.txt").read_text().strip().splitlines()
+        stage_s = {ln.split()[0]: float(ln.split()[1].rstrip("s")) for ln in timings[1:]}
+        focal = json.loads((out / "selfcal.json").read_text())["focal"]
+        gt_focal = float(read_sintel_cam(root / "gt" / name / "000000.cam")[0][0, 0])
+        models[name] = (model, images, points)
+        log(f"[sweep] {name}: run_pipeline {st['wall']:.2f}s, loaders {st['loader_s']:.3f}s; "
+            f"stages {json.dumps(stage_s)}; K1 {st['launches']} launches; {n_reg}/{T} "
+            f"registered, {len(points)} points; Sim3 ATE {res.ate:.5f}, RPE-t "
+            f"{res.rpe_trans:.5f}, RPE-r {res.rpe_rot_deg:.4f} deg against the renderer; "
+            f"selfcal focal {focal:.2f} px, BA focal {float(rec.params[0]):.2f} px (renderer "
+            f"{gt_focal:.2f} px)")
+    log(f"[sweep] --root_dir run {t_run:.2f}s; nets built {json.dumps(probe.builds)}, "
+        f"checkpoints parsed {probe.parsed}; loaders {probe.seqs[0]['loader_s']:.3f}s for the "
+        f"first sequence, {probe.seqs[1]['loader_s']:.3f}s for the second; K1 {launches} "
+        f"launches")
+
+    # score: the Sintel CLI on the run, and the motion labels against the masks
+    t0 = time.perf_counter()
+    sintel.main(["--gt_root", str(root / "gt"), "--pred_root", str(root / "seqs"),
+                 "--seqs", *SWEEP_SEQS])
+    ate_txt = root / "seqs" / "errors_ate.txt"
+    if not ate_txt.exists():
+        fail("sweep: eval.sintel wrote no errors_ate.txt")
+    if ate_txt.read_text() != summarize(results) + "\n":
+        fail(f"sweep: errors_ate.txt {ate_txt.read_text()!r} is not evaluate_sequence's "
+             f"{summarize(results)!r}")
+    log(f"[sweep] eval.sintel: errors_ate.txt equals evaluate_sequence on the same files: "
+        f"{ate_txt.read_text().strip()!r}")
+    labeled = {}
+    for st in probe.seqs:
+        name = st["name"]
+        labeled[name] = TrackArrays.load(st["out_dir"] / "trajectories_labeled" / "tracks.npz")
+        m = trajectory_label_metrics(labeled[name], dyn[name])
+        log(f"[sweep] {name}: trajectory labels against the renderer's masks over "
+            f"{int(m['num_images'])} images: IoU {m['iou']:.4f}, precision "
+            f"{m['precision']:.4f}, recall {m['recall']:.4f}, F1 {m['f1']:.4f} "
+            f"({labeled[name].num_tracks} tracks)")
+    t_score = time.perf_counter() - t0
+
+    # look: the viewer export of each model, the overlay of the held-out one
+    t0 = time.perf_counter()
+    for name, (model, images, points) in models.items():
+        ply, html = root / f"{name}.ply", root / f"{name}.html"
+        visualize.main(["-i", str(model), "-o", str(ply), "-w", str(html)])
+        n_vert = int(re.search(r"element vertex (\d+)", ply.read_text()[:300]).group(1))
+        if n_vert != len(points) + 5 * len(images):
+            fail(f"sweep: {name}.ply has {n_vert} vertices, not {len(points)} points + 5 x "
+                 f"{len(images)} cameras")
+        b64 = re.search(r'b64f32\("([^"]*)"\)', html.read_text()).group(1)
+        pos = np.frombuffer(base64.b64decode(b64), np.float32).reshape(-1, 3)
+        xyz = np.asarray([p.xyz for p in points.values()], np.float32)
+        if not np.array_equal(pos, xyz):
+            fail(f"sweep: {name}.html's embedded positions are not the model's xyz")
+        log(f"[sweep] sfm.visualize {name}: {n_vert} PLY vertices = {len(points)} points + 5 x "
+            f"{len(images)} cameras; HTML ({html.stat().st_size / 1e6:.1f} MB) embeds the "
+            f"model's {len(xyz)} xyz exactly")
+    name = SWEEP_SEQS[0]
+    frames_u8, _ = load_image_stack(root / "seqs" / name / "images")
+    ov = root / "overlay" / name
+    write_overlay_video(ov, frames_u8, labeled[name])
+    back = read_mjpeg_avi_frames(ov / "motion_seg.avi")
+    n_png = len(list(ov.glob("overlay_*.png")))
+    if n_png != T or not (ov / "motion_seg.gif").exists() or len(back) != T or \
+            any(f.shape != (h, w, 3) for f in back):
+        fail(f"sweep: overlay of {name}: {n_png} PNGs, GIF "
+             f"{(ov / 'motion_seg.gif').exists()}, AVI frames "
+             f"{[f.shape for f in back[:2]]} x {len(back)}")
+    t_look = time.perf_counter() - t0
+    log(f"[sweep] overlay of {name}: {n_png} PNGs, motion_seg.gif "
+        f"({(ov / 'motion_seg.gif').stat().st_size / 1e6:.1f} MB), motion_seg.avi read back "
+        f"as {len(back)} frames of {w}x{h}")
+
+    # trace: one 8-pair flow block under the port's torch.profiler context
+    apply = R._load_raft_apply(cfg, torch.device(probe.seqs[0]["device"]))  # the run's
+    stack = stages.upload_frame_stack(frames_u8, dev)
+    trace_dir = root / "trace"
+    with trace(str(trace_dir)):
+        apply(stack, np.arange(8), np.arange(1, 9))
+        torch.cuda.synchronize(dev)
+    files = list(trace_dir.glob("*.json"))
+    if len(files) != 1 or "corr_lookup_kernel" not in files[0].read_text():
+        fail(f"sweep: the trace {[f.name for f in files]} does not name corr_lookup_kernel")
+    log(f"[sweep] trace of one 8-pair flow block: {files[0].name} "
+        f"({files[0].stat().st_size / 1e6:.1f} MB) names corr_lookup_kernel")
+
+    if dump_dir is not None:
+        for st in probe.seqs:
+            name, lab = st["name"], labeled[st["name"]]
+            d = Path(dump_dir) / f"sweep_{name}"
+            d.mkdir(parents=True, exist_ok=True)
+            work = _stage_dir(f"sweep_sub_{name}", st["out_dir"])
+            rows = np.sort(np.random.default_rng(0).choice(
+                lab.num_tracks, min(SFM_DUMP_TRACKS, lab.num_tracks), replace=False))
+            sub = TrackArrays(xy=lab.xy[rows], mask=lab.mask[rows], labels=lab.labels[rows])
+            sub.save(work / "tracks.npz")
+            save_tracks_compressed(work / "tracks.npz", d / "tracks.npz")
+            shutil.copy(st["out_dir"] / "selfcal.json", d / "selfcal.json")
+            names = [f"{i:06d}.ppm" for i in range(T)]
+            r = stages.sfm_stage(sub, h, w, work, cfg, dev, names, log=lambda *a: None)
+            gt_w2c = np.stack([read_sintel_cam(root / "gt" / name / f"{i:06d}.cam")[1]
+                               for i in range(T)])
+            np.savez_compressed(
+                d / "sweep.npz", sfm_sub_registered=r.registered, sfm_sub_qvec=r.qvec,
+                sfm_sub_tvec=r.tvec, sfm_sub_params=r.params, sfm_hw=np.array([h, w]),
+                sfm_gt_w2c=gt_w2c, sfm_gt_focal=np.float64(
+                    read_sintel_cam(root / "gt" / name / "000000.cam")[0][0, 0]))
+            log(f"[sweep] --dump: {len(rows)} of {lab.num_tracks} labeled tracks of {name} "
+                f"(seed 0): {r.num_registered}/{T} registered on the card")
+    log(f"[sweep] phase {time.perf_counter() - t_phase:.1f}s: render {t_render:.1f}s, "
+        f"--root_dir run {t_run:.1f}s, score {t_score:.1f}s, viewer and overlay "
+        f"{t_look:.1f}s")
+    return dict(launches=launches)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1648,7 +1992,8 @@ def main(argv=None) -> int:
                          "4 frames, the seg check's chunks and card logits and the SfM "
                          "stage's poses to DIR/slice_dump.npz, and a seeded subset of the "
                          "labeled tracks (tracks.npz, with the card's SfM poses on it in "
-                         "the npz) and selfcal.json beside it, for "
+                         "the npz) and selfcal.json beside it, and the same for each "
+                         "[sweep] sequence in DIR/sweep_<name>/, for "
                          "scripts/compare_chip_dump_with_jax.py")
     args = ap.parse_args(argv)
 
@@ -1685,8 +2030,8 @@ def main(argv=None) -> int:
             d = Path(args.dump)
             d.mkdir(parents=True, exist_ok=True)
             np.savez_compressed(d / "slice_dump.npz", **s["dump"])
-            for name in ("tracks.npz", "selfcal.json"):
-                shutil.copy(WORK / "sfm_subset" / name, d / name)
+            shutil.copy(WORK / "sfm_subset" / "selfcal.json", d / "selfcal.json")
+            save_tracks_compressed(WORK / "sfm_subset" / "tracks.npz", d / "tracks.npz")
         m = phase_modes(dev, s, bool(args.dump))
         if args.dump:
             s["dump"].update(m)
@@ -1694,6 +2039,7 @@ def main(argv=None) -> int:
         kh = phase_net(dev, s["img_dir"], scale=0.5, tag="kernel-half")
         kn = phase_net(dev, s["img_dir"])
         tr = phase_train(dev)
+        sw = phase_sweep(dev, args.dump)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1712,7 +2058,7 @@ def main(argv=None) -> int:
         plain_ms_val=tr["flow"]["kernel"]["plain_ms"],
         library_ms_val=tr["flow"]["kernel"]["library_ms"],
         bound_ms_val=tr["flow"]["kernel"]["bound_ms"],
-        max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"])]
+        max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"], launches_sweep=sw["launches"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -217,6 +217,12 @@ def flow_correspondences(flows: dict, height: int, width: int, seed: int = 0,
     on their device. Returns (uv1, uv2, ok) [Q, M, 2], [Q, M, 2], [Q, M] on
     that device, Q = `num_selfcal_pairs(P)`; None when the image is too small
     to carry a focal signal.
+
+    Without both flow_f and flow_b, the raw forward pairs of flows["flow_f"]
+    and flows["flow_f2"] (those present, in that order) are used instead:
+    every grid point moved by its pair's flow, kept where it lands more than
+    4 px inside the image (Q = the number of those flow pairs), as the
+    reference does (particlesfm_tpu/globalsfm/selfcal.py:309-322).
     """
     rng = np.random.default_rng(seed)
     mx = min(24, max(2, width // 8))
@@ -230,6 +236,8 @@ def flow_correspondences(flows: dict, height: int, width: int, seed: int = 0,
     if len(grid) > max_points:
         grid = grid[rng.choice(len(grid), max_points, replace=False)]
 
+    if not ("flow_b" in flows and "flow_f" in flows):
+        return _forward_correspondences(flows, grid, height, width)
     ff = torch.as_tensor(flows["flow_f"])
     fb = torch.as_tensor(flows["flow_b"], device=ff.device)
     dev = ff.device
@@ -256,6 +264,24 @@ def flow_correspondences(flows: dict, height: int, width: int, seed: int = 0,
     return torch.cat(uv1s), torch.cat(uv2s), torch.cat(oks)
 
 
+def _forward_correspondences(flows: dict, grid: np.ndarray, height: int, width: int):
+    """The forward-only fallback of `flow_correspondences`: each flow pair
+    of flow_f then flow_f2 sampled at the grid, no consistency gate."""
+    uv1s, uv2s = [], []
+    for name in ("flow_f", "flow_f2"):
+        if name not in flows:
+            continue
+        fl = torch.as_tensor(flows[name])                   # [P, H, W, 2]
+        grid_d = torch.from_numpy(grid).to(fl.device)
+        pts = grid_d.expand(fl.shape[0], -1, -1)
+        uv2s.append(bilinear_sample(fl, pts) + pts)
+        uv1s.append(pts)
+    uv1, uv2 = torch.cat(uv1s), torch.cat(uv2s)
+    ok = ((uv2[..., 0] > 4) & (uv2[..., 0] < width - 4)
+          & (uv2[..., 1] > 4) & (uv2[..., 1] < height - 4))
+    return uv1, uv2, ok
+
+
 def estimate_focal_from_flows(flows: dict, height: int, width: int, seed: int = 0,
                               grid_step: int = 10, max_points: int = 2048,
                               thres_px_sq: float = 4.0, compose_strides=(2, 4),
@@ -264,7 +290,8 @@ def estimate_focal_from_flows(flows: dict, height: int, width: int, seed: int = 
     `estimate_shared_focal` on `flow_correspondences`.
 
     u_f / u_h: optional injected RANSAC draws (see `estimate_shared_focal`;
-    P = `num_selfcal_pairs(len(flows["flow_f"]))`).
+    P = `num_selfcal_pairs(len(flows["flow_f"]))`, or without flow_b the
+    number of flow_f and flow_f2 pairs).
 
     Returns a JSON-ready dict {focal, confidence, num_pairs, dip, interior};
     `dip` is the aggregated curve's min/median contrast (< ~0.5 means a real

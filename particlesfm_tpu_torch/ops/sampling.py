@@ -54,6 +54,12 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor, zero_pad: bool = True) 
     )
 
 
+def bilinear_sample_nchw(img: torch.Tensor, xy: torch.Tensor,
+                         zero_pad: bool = True) -> torch.Tensor:
+    """Sample img [C, H, W] at pixel coords xy [N, 2] -> [N, C]."""
+    return bilinear_sample(torch.movedim(img, 0, -1), xy, zero_pad=zero_pad)
+
+
 def grid_coords(height: int, width: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Pixel coordinate grid [H, W, 2] with (x, y) channels."""
     ys, xs = torch.meshgrid(

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import sys
 from pathlib import Path
@@ -96,6 +97,27 @@ DEFAULT_SEG_CKPT = _CKPT_DIR / "motionseg_synth3d.msgpack"
 DEFAULT_RAFT_CKPT = _CKPT_DIR / "raft_synth.msgpack"
 DEFAULT_DEPTH_CKPT = _CKPT_DIR / "depth_synth.msgpack"
 
+# Loader memo across run_pipeline calls: a multi-sequence sweep (--root_dir)
+# re-enters run_pipeline per sequence, and each loader would parse its
+# msgpack and build its net again. Keyed on checkpoint path + mtime (a
+# long-lived process that retrains or overwrites a checkpoint must not keep
+# serving stale weights), the config fields that change the apply, and the
+# device: a CPU apply and a CUDA apply are different entries.
+_APPLY_CACHE: dict = {}
+
+
+def _ckpt_key(ckpt) -> tuple:
+    try:
+        return (str(ckpt), os.path.getmtime(ckpt))
+    except OSError:
+        return (str(ckpt), None)
+
+
+def _memo(key, build):
+    if key not in _APPLY_CACHE:
+        _APPLY_CACHE[key] = build()
+    return _APPLY_CACHE[key]
+
 
 def _load_raft_apply(cfg: Config, device):
     """Pair-indexed flow apply with refinement fused after the net; defaults
@@ -111,11 +133,13 @@ def _load_raft_apply(cfg: Config, device):
         tuple(tuple(p) for p in cfg.flow.refine_schedule)
         if cfg.flow.photometric_refine else None
     )
-    return load_flow_apply_pairs(
+    key = ("raft", _ckpt_key(ckpt), cfg.flow.iters, cfg.flow.per_device,
+           cfg.flow.infer_scale, schedule, cfg.flow.refine_max_total_px, str(device))
+    return _memo(key, lambda: load_flow_apply_pairs(
         ckpt, iters=cfg.flow.iters, per_device=cfg.flow.per_device,
         scale=cfg.flow.infer_scale, refine_schedule=schedule,
         refine_max_total=cfg.flow.refine_max_total_px, device=device,
-    )
+    ))
 
 
 def _load_depth_apply(cfg: Config, device):
@@ -129,11 +153,16 @@ def _load_depth_apply(cfg: Config, device):
         ckpt = str(DEFAULT_DEPTH_CKPT)
     if ckpt is None:
         return None
+    return _memo(("depth", _ckpt_key(ckpt), cfg.depth.base, str(device)),
+                 lambda: _build_depth_apply(ckpt, cfg.depth.base, device))
+
+
+def _build_depth_apply(ckpt, base: int, device):
     from ..io.checkpoint import depth_state_dict_from_jax, load_msgpack
     from ..models.depth import DepthNet, normalize_depth
 
     blob = load_msgpack(ckpt)
-    model = DepthNet(base=cfg.depth.base)
+    model = DepthNet(base=base)
     model.load_state_dict(
         depth_state_dict_from_jax(blob["params"], blob.get("batch_stats", {})), strict=True)
     model = model.to(device).eval()
@@ -163,11 +192,15 @@ def _load_seg_apply(cfg: Config, device):
         ckpt = str(DEFAULT_SEG_CKPT)
     if ckpt is None:
         return None
+    return _memo(("seg", _ckpt_key(ckpt), tuple(cfg.motionseg.resolution), str(device)),
+                 lambda: _build_seg_apply(ckpt, tuple(cfg.motionseg.resolution), device))
+
+
+def _build_seg_apply(ckpt, input_hw: tuple, device):
     from ..io.checkpoint import load_msgpack, motionseg_state_dict_from_jax
     from ..models.depth import resize_bilinear
     from ..models.motionseg import TrajOADepth
 
-    input_hw = tuple(cfg.motionseg.resolution)
     sidecar_threshold = None
     meta_path = Path(str(ckpt) + ".json")
     if meta_path.exists():

@@ -1,9 +1,11 @@
-"""Per-stage wall-clock timers.
+"""Per-stage wall-clock timers and an opt-in profiler trace.
 
 `StageTimer` writes the same `timings.txt` report as
 particlesfm_tpu/utils/profiling.py (the format bench.py:79-86 parses). Stages
 that launch CUDA work must synchronize before they end for the time to cover
-the device work; the pipeline stages do.
+the device work; the pipeline stages do. `trace` is the counterpart of the
+reference's jax.profiler context: a torch.profiler trace of host and CUDA
+activity, written as a Chrome trace.
 """
 from __future__ import annotations
 
@@ -11,7 +13,10 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
 
 
 class StageTimer:
@@ -51,3 +56,23 @@ class StageTimer:
             )
         lines.append(f"  {'TOTAL':<28} {total:8.3f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """torch.profiler trace context; no-op when log_dir is None. Records CPU
+    activity, and CUDA activity when CUDA is available, and writes a Chrome
+    trace `trace_<pid>_<ns>.json` into `log_dir` when the context ends."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))

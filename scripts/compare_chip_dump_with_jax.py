@@ -36,15 +36,24 @@ the seg stage's model input (u16 tracks) with the card's logits. Prints:
 - [stride2] the flow stage of each package (the port on the CPU) on the
   dump's 4 frames at flow.infer_scale=0.5 with the 4 px stride-2 fallback:
   the share of stride-2 pixels each package takes from the composition,
-  and where the two decisions differ.
+  and where the two decisions differ;
+- [sweep] for each sequence of chip_smoke.py's [sweep] phase (the dump's
+  sweep_<name>/ directories: a seeded subset of its labeled tracks, its
+  selfcal.json and the card's SfM poses on the subset in sweep.npz): the
+  JAX package's and the port's (CPU) sfm_stage on the subset against the
+  card's poses: registered frames, Sim3 ATE against the renderer and
+  between the pose sets, and BA's focal; each package again with the track
+  coordinates scaled by 1 + 2^-22 (its own movement under rounding).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))   # both packages
 
 import numpy as np  # noqa: E402
 
@@ -96,22 +105,40 @@ def _centers(qvec, tvec) -> np.ndarray:
     return se3.camera_center(torch.as_tensor(qvec), torch.as_tensor(tvec)).numpy()
 
 
-def compare_sfm(z, dump_dir: Path) -> None:
-    import json
+def _sfm_run(pkg: str, tr, H: int, W: int, selfcal_dir: Path, names, scale=1.0):
+    """The JAX package's (`pkg` "JAX") or the port's (on the CPU) sfm_stage
+    at the default config on the tracks, their coordinates scaled by
+    `scale`, with `selfcal_dir`'s selfcal.json as the focal prior."""
     import shutil
     import tempfile
+
+    from particlesfm_tpu.pipeline.stages import sfm_stage as jsfm_stage
+    from particlesfm_tpu.tracks.store import TrackArrays as JTracks
+    from particlesfm_tpu.utils.config import Config as JConfig
+    from particlesfm_tpu_torch.pipeline.stages import sfm_stage
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+    from particlesfm_tpu_torch.utils.config import Config
+
+    xy = (tr.xy * np.float32(scale)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(selfcal_dir / "selfcal.json", Path(tmp) / "selfcal.json")
+        if pkg == "JAX":
+            return jsfm_stage(JTracks(xy, tr.mask, tr.labels), H, W, Path(tmp), JConfig(),
+                              names, log=lambda *a: None)
+        return sfm_stage(TrackArrays(xy, tr.mask, tr.labels), H, W, Path(tmp), Config(),
+                         "cpu", names, log=lambda *a: None)
+
+
+def compare_sfm(z, dump_dir: Path) -> None:
+    import json
 
     import jax
     import jax.numpy as jnp
     import torch
 
     from particlesfm_tpu.globalsfm.twoview import estimate_relative_poses as jerp
-    from particlesfm_tpu.pipeline.stages import sfm_stage as jsfm_stage
-    from particlesfm_tpu.tracks.store import TrackArrays as JTracks
-    from particlesfm_tpu.utils.config import Config as JConfig
     from particlesfm_tpu_torch.geometry.alignment import ate_rmse
     from particlesfm_tpu_torch.globalsfm.twoview import estimate_relative_poses, pair_draws
-    from particlesfm_tpu_torch.pipeline.stages import sfm_stage
     from particlesfm_tpu_torch.sfm.correspondences import build_pair_tensors
     from particlesfm_tpu_torch.tracks.store import TrackArrays
     from particlesfm_tpu_torch.utils.config import Config
@@ -123,23 +150,13 @@ def compare_sfm(z, dump_dir: Path) -> None:
     names = [f"{i:06d}.ppm" for i in range(T)]
     eps = np.float32(1 + 2.0 ** -22)      # a rounding-only change of the tracks
 
-    def run(pkg, scale):
-        xy = (tr.xy * np.float32(scale)).astype(np.float32)
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copy(dump_dir / "selfcal.json", Path(tmp) / "selfcal.json")
-            if pkg == "JAX":
-                return jsfm_stage(JTracks(xy, tr.mask, tr.labels), H, W, Path(tmp), JConfig(),
-                                  names, log=lambda *a: None)
-            return sfm_stage(TrackArrays(xy, tr.mask, tr.labels), H, W, Path(tmp), Config(),
-                             "cpu", names, log=lambda *a: None)
-
     sets = {"card (full set)": (z["sfm_registered"], _centers(z["sfm_qvec"], z["sfm_tvec"]),
                                 float(z["sfm_params"][0])),
             "card": (z["sfm_sub_registered"], _centers(z["sfm_sub_qvec"], z["sfm_sub_tvec"]),
                      float(z["sfm_sub_params"][0]))}
     for pkg in ("JAX", "port (CPU)"):
         for tag, scale in (("", 1.0), (" x (1 + 2^-22)", eps)):
-            rec = run(pkg, scale)
+            rec = _sfm_run(pkg, tr, H, W, dump_dir, names, scale)
             sets[pkg + tag] = (rec.registered, _centers(rec.qvec, rec.tvec), float(rec.params[0]))
     print(f"[sfm] the dump's {tr.num_tracks} labeled tracks, {T} frames at {W}x{H}:")
     for name, (reg, c, f) in sets.items():
@@ -235,6 +252,40 @@ def compare_sfm_modes(z, dump_dir: Path) -> None:
             print(f"[sfm-modes] {mode}, {a} vs {b}: same registered set "
                   f"{bool((ra == rb).all())}, Sim3 ATE between the pose sets "
                   f"{ate_rmse(ca[both], cb[both]):.3e}")
+
+
+def compare_sweep(dump_dir: Path) -> None:
+    from particlesfm_tpu_torch.geometry.alignment import ate_rmse
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    eps = np.float32(1 + 2.0 ** -22)      # a rounding-only change of the tracks
+    for d in sorted(dump_dir.glob("sweep_*")):
+        z = np.load(d / "sweep.npz")
+        tr = TrackArrays.load(d / "tracks.npz")
+        H, W = (int(v) for v in z["sfm_hw"])
+        gt_c = _centers_w2c(z["sfm_gt_w2c"])
+        T = len(gt_c)
+        names = [f"{i:06d}.ppm" for i in range(T)]
+        sets = {"card": (z["sfm_sub_registered"], _centers(z["sfm_sub_qvec"], z["sfm_sub_tvec"]),
+                         float(z["sfm_sub_params"][0]))}
+        for pkg in ("JAX", "port (CPU)"):
+            for tag, scale in (("", 1.0), (" x (1 + 2^-22)", eps)):
+                rec = _sfm_run(pkg, tr, H, W, d, names, scale)
+                sets[pkg + tag] = (rec.registered, _centers(rec.qvec, rec.tvec),
+                                   float(rec.params[0]))
+        seq = d.name[len("sweep_"):]
+        for name, (reg, c, f) in sets.items():
+            print(f"[sweep] {seq}, {tr.num_tracks} labeled tracks, {name}: {int(reg.sum())}/{T} "
+                  f"registered, Sim3 ATE against the renderer {ate_rmse(c[reg], gt_c[reg]):.5f}, "
+                  f"focal {f:.2f} px (renderer {float(z['sfm_gt_focal']):.2f})")
+        for a, b in (("JAX", "card"), ("JAX", "port (CPU)"), ("port (CPU)", "card"),
+                     ("JAX", "JAX x (1 + 2^-22)"), ("port (CPU)", "port (CPU) x (1 + 2^-22)"),
+                     ("port (CPU) x (1 + 2^-22)", "card")):
+            (ra, ca, fa), (rb, cb, fb) = sets[a], sets[b]
+            both = ra & rb
+            print(f"[sweep] {seq}, {a} vs {b}: same registered set {bool((ra == rb).all())}, "
+                  f"Sim3 ATE between the pose sets {ate_rmse(ca[both], cb[both]):.3e}, focal "
+                  f"{fa / fb - 1:+.3e}")
 
 
 def compare_pnp(z) -> None:
@@ -368,6 +419,7 @@ def main(argv=None) -> int:
     if "inc_pnp_X" in z.files:
         compare_pnp(z)
     compare_stride2(z)
+    compare_sweep(Path(args.dump).parent)
     return 0
 
 

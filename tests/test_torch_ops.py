@@ -1,5 +1,5 @@
-"""Port parity: dense ops (bilinear_sample, flow_check, free_cell_mask,
-motion_boundary, compose_flow, stride2_compose_fallback).
+"""Port parity: dense ops (bilinear_sample, bilinear_sample_nchw, flow_check,
+free_cell_mask, motion_boundary, compose_flow, stride2_compose_fallback).
 
 Same seeded numpy inputs through the JAX function and the port's; values at
 atol 1e-6 (the composed flows at 1e-5 px) and masks identical.
@@ -35,6 +35,17 @@ def test_bilinear_sample_matches_jax(zero_pad):
     got = sampling.bilinear_sample(t(img), t(xy), zero_pad).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
+
+
+@pytest.mark.parametrize("zero_pad", [True, False])
+def test_bilinear_sample_nchw_matches_jax(zero_pad):
+    rng = np.random.default_rng(2)
+    img = rng.normal(size=(4, H, W)).astype(np.float32)
+    xy = np.stack([rng.uniform(-3, W + 3, 60), rng.uniform(-3, H + 3, 60)], -1).astype(np.float32)
+    want = np.asarray(jsampling.bilinear_sample_nchw(jnp.asarray(img), jnp.asarray(xy), zero_pad))
+    got = sampling.bilinear_sample_nchw(t(img), t(xy), zero_pad).numpy()
+    assert got.shape == want.shape == (60, 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 def test_bilinear_sample_batched_equals_per_image():
     rng = np.random.default_rng(1)

@@ -207,6 +207,25 @@ def test_estimate_focal_from_flows_matches_jax(conditioned):
     assert abs(own["focal"] / sc["focal"] - 1) < 0.06, own
 
 
+
+@pytest.mark.parametrize("names", [("flow_f", "flow_f2"), ("flow_f",)])
+def test_forward_only_fallback_matches_jax(conditioned, names):
+    """Without flow_b the reference falls back to the raw forward pairs of
+    flow_f and flow_f2 (particlesfm_tpu/globalsfm/selfcal.py:309-322); the
+    port raised KeyError there. Same draws: focal within 1e-3, as above."""
+    sc = conditioned
+    flows = {k: sc["flows"][k] for k in names}
+    info_j = jselfcal.estimate_focal_from_flows(flows, 192, 256, seed=0)
+    P = sum(len(flows[k]) for k in names)
+    u_f, u_h = _draws(jax.random.PRNGKey(0), P)
+    info = selfcal.estimate_focal_from_flows({k: torch.from_numpy(v) for k, v in flows.items()},
+                                             192, 256, seed=0, u_f=u_f, u_h=u_h)
+    assert abs(info["focal"] / info_j["focal"] - 1) <= 1e-3
+    assert info["interior"] == info_j["interior"]
+    assert abs(info["num_pairs"] - info_j["num_pairs"]) <= 1
+    uv1, uv2, ok = selfcal.flow_correspondences(flows, 192, 256)
+    assert uv1.shape[0] == P and bool(ok.any())
+
 def test_small_image_answer_is_the_references():
     flows = {k: np.zeros((3, 40, 60, 2), np.float32) for k in ("flow_f", "flow_b")}
     assert selfcal.estimate_focal_from_flows(flows, 40, 60) == \
