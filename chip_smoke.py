@@ -4,7 +4,8 @@ against its plain version, drives the port's main path and checks its output.
     python3 chip_smoke.py            # all phases, one CUDA device
     python3 chip_smoke.py --profile  # also device time by kernel of one more run
     python3 chip_smoke.py --dump DIR  # also the checks' inputs, for the JAX compare
-                                      # (and a labeled-track subset + selfcal.json)
+                                      # (and a labeled-track subset + selfcal.json,
+                                      # and [mesh]'s BA problem and 4-shard result)
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device  — CUDA required; card name and power limit from nvidia-smi.
@@ -29,7 +30,21 @@ Phases (each prints its lines; any failure exits non-zero):
                            seg apply on the card against the CPU on the first
                            and the last (padded) chunk of the run's own
                            input, and against the run's labels; IoU vs GT.
-  5. modes   — every other run_pipeline option on the same frames:
+  5. mesh    — the device mesh on [slice]'s own data: make_mesh() covers
+               every visible card; on a logical mesh of 4 x cuda:0
+               (overhead and correctness, not scaling) and, with more than
+               one card, on the real mesh: sharded_map_frames(occlusion_mask)
+               on the run's 47 forward/backward pairs, the pipeline's flow
+               apply on its first 32 pairs (the same K1 launch count), the
+               depth apply on 8 frames and segment_tracks on the run's
+               tracks equal the one-device results bit for bit (labels: the
+               run's); sharded_bundle_adjust on [slice]'s last BA problem
+               within the reference test's tolerances of plain BA (cost
+               1e-3 relative, q 1e-4, t and X 1e-3); the same sharded BA in
+               a world-size-1 NCCL group (its sums all-reduced on the card)
+               bit-identical to the in-process one. Wall times against the
+               one-device paths.
+  6. modes   — every other run_pipeline option on the same frames:
                (a) `--sfm_type incremental` as the user's command: K1
                    launches, model and converted outputs, >= 3 registered
                    frames with finite poses; the first PnP registration,
@@ -49,11 +64,11 @@ Phases (each prints its lines; any failure exits non-zero):
                    shape, finite flows, stride-1 EPE, the fallback card vs
                    CPU on the run's own flows; one block through RAFT with
                    K1 and with the plain lookup at 224x512 (`[kernel-half]`).
-  6. net     — one block of 8 pairs through RAFT with K1 and with the plain
+  7. net     — one block of 8 pairs through RAFT with K1 and with the plain
                lookup on the card; the flows must agree. `[kernel-net]`: the
                measurements of phase 3 on the pyramid and coordinates of the
                block's last GRU iteration (the net's own coordinates).
-  7. train   — the three trainers at their default configurations on small
+  8. train   — the three trainers at their default configurations on small
                in-process renders: for each, one step card vs CPU from the
                same parameters and batch with TF32 off (loss within 1e-4,
                gradient global norm within 1e-3) and, for flow and depth,
@@ -63,7 +78,7 @@ Phases (each prints its lines; any failure exits non-zero):
                trainer's validation (`[kernel-val]`, 32x40 grid, batch 4:
                4-byte copies, as level widths 10 and 5 are not multiples of
                4) held against the plain lookup; train_cli --synthetic3d.
-  8. sweep   — a multi-sequence evaluation sweep as a user runs it: renders
+  9. sweep   — a multi-sequence evaluation sweep as a user runs it: renders
                hb_01_dyn (held-out family B, scripts/make_heldout_set.py's
                recipe) and seq_01_dyn (family A), 48 frames at 1024x436 each
                with .cam poses and dynamic masks; runs `run.main(["--root_dir",
@@ -82,8 +97,9 @@ The last two lines are the card's `name, power.limit` and
 {"ok": true, "device": {...}}; the line before them lists the kernels (the
 `*_net` keys are the `[kernel-net]` numbers, the `*_half` keys those of
 `[kernel-half]` and the half-scale flow stage's launches, the `*_val` keys
-those of `[kernel-val]`, `launches_train` the flow trainer's and
-`launches_sweep` the sweep's).
+those of `[kernel-val]`, `launches_train` the flow trainer's,
+`launches_sweep` the sweep's and `launches_mesh` the flow apply's on
+[mesh]'s logical mesh, over all its shards).
 """
 from __future__ import annotations
 
@@ -922,7 +938,227 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
     if profile_run:
         profile_pipeline(dev, img_dir, cfg)
     return dict(launches=launches, img_dir=img_dir, dump=dump, gt=gt, out_dir=out_dir,
-                last_ba=solvers.last["bundle_adjust"])
+                last_ba=solvers.last["bundle_adjust"], cfg=cfg, flows=flows, tracks=tracks,
+                depths=kept["depth_stage"])
+
+
+MESH_SHARDS = 4               # [mesh]'s logical mesh on one card: [cuda:0] * 4
+MESH_PAIRS = 32               # flow_f's first pairs: one block of 8 pairs per shard
+
+
+def _synced(fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ba_gaps(got, ref) -> dict:
+    """Cost (relative), q, t and X (max abs) of a BA result against another."""
+    cost, cost_ref = float(got.cost), float(ref.cost)
+    return dict(cost=abs(cost - cost_ref) / max(abs(cost_ref), 1e-30),
+                q=float((got.q - ref.q).abs().max()), t=float((got.t - ref.t).abs().max()),
+                X=float((got.X - ref.X).abs().max()))
+
+
+def _gaps_text(g: dict) -> str:
+    return (f"cost {g['cost']:.3e} relative, q {g['q']:.3e}, t {g['t']:.3e}, "
+            f"X {g['X']:.3e}")
+
+
+BA_TOL = dict(cost=1e-3, q=1e-4, t=1e-3, X=1e-3)    # tests/test_parallel.py:135-140
+
+
+def mesh_checks(dev, tag: str, mesh, s: dict):
+    """[mesh]'s checks of the data-parallel paths on `mesh`, each against the
+    one-device path on the same inputs from [slice]'s run: returns the
+    sharded BA result and K1's launches in the mesh's flow apply."""
+    import torch
+
+    from particlesfm_tpu_torch.globalsfm.ba import bundle_adjust
+    from particlesfm_tpu_torch.io.images import load_image_stack
+    from particlesfm_tpu_torch.motionseg import segment_tracks
+    from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.ops.flow_ops import occlusion_mask
+    from particlesfm_tpu_torch.parallel import sharded_bundle_adjust, sharded_map_frames
+    from particlesfm_tpu_torch.pipeline import run as R
+    from particlesfm_tpu_torch.pipeline.stages import upload_frame_stack
+    from particlesfm_tpu_torch.tracks.store import TrackArrays
+
+    cfg, flows, depths, nd = s["cfg"], s["flows"], s["depths"], mesh.size
+    where = f"[mesh] {tag} ({nd} shards: {', '.join(mesh.key())})"
+
+    # (a) occlusion checks over the run's forward/backward pairs
+    thr = cfg.track.flow_check_thres
+    ff, fb = flows["flow_f"], flows["flow_b"]
+    (occ1, err1), t1 = _synced(lambda: occlusion_mask(ff, fb, thr))
+    (occ, err), tm = _synced(lambda: sharded_map_frames(
+        lambda f, b: occlusion_mask(f, b, thr), mesh, ff, fb))
+    d_occ, d_err = float((occ - occ1).abs().max()), float((err - err1).abs().max())
+    log(f"{where} sharded_map_frames(occlusion_mask) on the run's {ff.shape[0]} pairs: max "
+        f"|diff| occ {d_occ:.3e} err {d_err:.3e}; {tm:.4f}s vs one device {t1:.4f}s")
+    if d_occ or d_err:
+        fail(f"mesh: {tag} sharded occlusion check differs from the unsharded one")
+
+    # (b) the pipeline's flow apply on flow_f's first pairs
+    images, _ = load_image_stack(s["img_dir"])
+    stack = upload_frame_stack(images, dev)
+    ia = np.arange(MESH_PAIRS)
+    one, meshed = R._load_raft_apply(cfg, dev), R._load_raft_apply(cfg, mesh)
+    cl.reset_launches()
+    fl1, t1 = _synced(lambda: one(stack, ia, ia + 1))
+    n1 = cl.launches
+    cl.reset_launches()
+    flm, tm = _synced(lambda: meshed(stack, ia, ia + 1))
+    nm = cl.launches
+    d_one = float((flm - fl1).abs().max())
+    d_run = float((flm - flows["flow_f"][:MESH_PAIRS]).abs().max())
+    log(f"{where} flow apply on the run's first {MESH_PAIRS} pairs: max |diff| vs one device "
+        f"{d_one:.3e}, vs the run's flows {d_run:.3e}; K1 launches {nm} (one device {n1}); "
+        f"{tm:.3f}s vs one device {t1:.3f}s")
+    if d_one or d_run:
+        fail(f"mesh: {tag} flows differ from the one-device flows ({d_one}, {d_run})")
+    if nm != n1 or nm != MESH_PAIRS // cfg.flow.per_device * cfg.flow.iters:
+        fail(f"mesh: {tag} K1 launched {nm} times, one device {n1}")
+
+    # (c) the depth apply on 8 frames
+    depth1, depthm = R._load_depth_apply(cfg, dev), R._load_depth_apply(cfg, mesh)
+    d1, t1 = _synced(lambda: depth1(stack[:8]))
+    dm, tm = _synced(lambda: depthm(stack[:8]))
+    d_one, d_run = float((dm - d1).abs().max()), float((dm - depths[:8]).abs().max())
+    log(f"{where} depth apply on 8 frames: max |diff| vs one device {d_one:.3e}, vs the "
+        f"run's depth {d_run:.3e}; {tm:.3f}s vs one device {t1:.3f}s")
+    if d_one or d_run:
+        fail(f"mesh: {tag} depths differ from the one-device depths ({d_one}, {d_run})")
+
+    # (d) segment_tracks' window split on the run's tracks
+    H, W = images.shape[1:3]
+    seg1, segm = R._load_seg_apply(cfg, dev), R._load_seg_apply(cfg, mesh)
+    thr = cfg.motionseg.threshold
+    if seg1.threshold is not None and abs(thr - 0.5) < 1e-9:
+        thr = float(seg1.threshold)         # as motionseg_stage decides it
+    kw = dict(window_size=cfg.motionseg.window_size, traj_max_num=cfg.motionseg.traj_max_num,
+              threshold=thr)
+    logits = {"one": [], "mesh": []}
+
+    def recording(apply, key):
+        def rec(traj, depth, valid):
+            out = apply(traj, depth, valid)
+            logits[key].append(out)
+            return out
+        rec.accepts_u16 = apply.accepts_u16
+        return rec
+
+    lab1, t1 = _synced(lambda: segment_tracks(recording(seg1, "one"), s["tracks"], depths,
+                                              (H, W), **kw).labels)
+    labm, tm = _synced(lambda: segment_tracks(recording(segm, "mesh"), s["tracks"], depths,
+                                              (H, W), mesh=mesh, **kw).labels)
+    B = logits["one"][0].shape[0]
+    lg1 = torch.cat(logits["one"], 1)
+    lgm = torch.cat([torch.cat(logits["mesh"][i:i + nd])[:B]
+                     for i in range(0, len(logits["mesh"]), nd)], 1)
+    run_labels = TrackArrays.load(s["out_dir"] / "trajectories_labeled" / "tracks.npz").labels
+    d_lg = float((lgm - lg1).abs().max())
+    n_run, n_one = int((labm != run_labels).sum()), int((labm != lab1).sum())
+    log(f"{where} segment_tracks on the run's {s['tracks'].num_tracks} tracks, {B} windows "
+        f"on {nd} shards: max |logit diff| vs one device {d_lg:.3e}; labels differing from the "
+        f"run's {n_run}, from one device {n_one}; {tm:.3f}s vs one device {t1:.3f}s")
+    if n_run or n_one:
+        fail(f"mesh: {tag} labels differ from the run's ({n_run}) or one device's ({n_one})")
+
+    # (e) sharded BA on [slice]'s last BA problem. The LM loop stops after two
+    # accepted steps that improve the cost by < function_tolerance; the
+    # shards' sums round differently from plain BA's, so that test may stop
+    # the two a step apart, and the gate compares them at the same step count
+    a, bkw, _ = s["last_ba"]
+    plain, tp = _synced(lambda: bundle_adjust(*a, **bkw))
+    sh, ts = _synced(lambda: sharded_bundle_adjust(mesh, *a, **bkw))
+    ref, got = plain, sh
+    if sh.iters != plain.iters:
+        steps = dict(bkw, max_iterations=min(sh.iters, plain.iters))
+        ref = plain if plain.iters < sh.iters else bundle_adjust(*a, **steps)
+        got = sh if sh.iters < plain.iters else sharded_bundle_adjust(mesh, *a, **steps)
+    gaps = _ba_gaps(got, ref)
+    moved = (sh.X - plain.X).norm(dim=-1)
+    log(f"{where} sharded_bundle_adjust on [slice]'s last BA problem ({a[0].shape[0]} views, "
+        f"{a[3].shape[0]} tracks): LM iterations {sh.iters} / plain {plain.iters}, at the "
+        f"mapper's stop rule vs plain {_gaps_text(_ba_gaps(sh, plain))} (points moved > 1e-3: "
+        f"{int((moved > 1e-3).sum())}); at {got.iters} / {ref.iters} steps "
+        f"{_gaps_text(gaps)} (tolerances {json.dumps(BA_TOL)}); {ts:.3f}s vs plain {tp:.3f}s")
+    if got.iters != ref.iters or any(gaps[k] > BA_TOL[k] for k in BA_TOL):
+        fail(f"mesh: {tag} sharded BA outside the tolerances of plain BA at "
+             f"{got.iters} / {ref.iters} steps: {gaps}")
+    return sh, nm
+
+
+def phase_mesh(dev, s: dict, dump: bool) -> dict:
+    """Phase [mesh]: the device mesh on [slice]'s own data. make_mesh()
+    covers every visible card; on a logical mesh of MESH_SHARDS copies of
+    the card (overhead and correctness, not scaling) and, with more than
+    one card, on the real mesh: the sharded occlusion check, flow, depth and
+    seg applies equal the one-device ones bit for bit (the same K1 launch
+    count) and sharded BA stays within the reference test's tolerances of
+    plain BA; then the same sharded BA in a world-size-1 NCCL group, whose
+    all-reduce must leave it bit-identical. Returns K1's launches in the
+    logical mesh's flow apply and, with `dump`, the BA problem and the
+    card's 4-shard result for the JAX compare."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from particlesfm_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                sharded_bundle_adjust)
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    every = make_mesh()
+    if every.key() != tuple(f"cuda:{i}" for i in range(n)):
+        fail(f"mesh: make_mesh() covers {every.key()}, device_count() is {n}")
+    log(f"[mesh] make_mesh() covers the {n} visible card(s): {', '.join(every.key())}")
+    logical = make_mesh(devices=[dev] * MESH_SHARDS)
+    sh, launches = mesh_checks(dev, f"logical mesh of {MESH_SHARDS} x {dev}", logical, s)
+
+    a, bkw, _ = s["last_ba"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        shn, tn = _synced(lambda: sharded_bundle_adjust(logical, *a, **bkw))
+        world = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(getattr(shn, k), getattr(sh, k)) for k in ("q", "t", "X", "cost"))
+    log(f"[mesh] the same sharded BA in a world-size-{world} NCCL group (its sums all-reduced "
+        f"on the card): bit-identical to the in-process result {same}; {tn:.3f}s")
+    if not same or shn.iters != sh.iters:
+        fail("mesh: sharded BA through the NCCL all-reduce differs from the in-process one")
+
+    if n > 1:
+        mesh_checks(dev, f"mesh of the {n} cards", every, s)
+    else:
+        log("[mesh] one card visible: the multi-card mesh was not run (absent hardware)")
+    log(f"[mesh] {time.perf_counter() - t0:.1f}s")
+    if not dump:
+        return dict(launches=launches, dump={})
+    q, t, params, X, obs, free, pm = a
+    return dict(launches=launches, dump=dict(mesh_ba_q=q.cpu().numpy(), mesh_ba_t=t.cpu().numpy(),
+                mesh_ba_params=params.cpu().numpy(), mesh_ba_X=X.cpu().numpy(),
+                mesh_ba_fidx=obs.frame_idx.cpu().numpy().astype(np.int32), mesh_ba_uv=obs.uv.cpu().numpy(),
+                mesh_ba_mask=obs.mask.cpu().numpy(), mesh_ba_free=free.cpu().numpy(),
+                mesh_ba_pm=pm.cpu().numpy(),
+                mesh_ba_kw=json.dumps({k: v for k, v in bkw.items() if k != "focal_bounds"}),
+                mesh_ba_focal_bounds=(np.full(2, np.nan, np.float32)
+                                      if bkw.get("focal_bounds") is None
+                                      else bkw["focal_bounds"].cpu().numpy()),
+                mesh_ba_out_q=sh.q.cpu().numpy(), mesh_ba_out_t=sh.t.cpu().numpy(),
+                mesh_ba_out_X=sh.X.cpu().numpy(), mesh_ba_out_cost=sh.cost.cpu().numpy(),
+                mesh_ba_out_iters=np.int64(sh.iters), mesh_shards=np.int64(MESH_SHARDS)))
 
 
 def _pose_eval(out_dir: Path, gt):
@@ -2026,6 +2262,10 @@ def main(argv=None) -> int:
         shutil.rmtree(WORK)
     try:
         s = phase_slice(dev, FRAMES, args.profile, bool(args.dump))
+        me = phase_mesh(dev, s, bool(args.dump))
+        s["dump"].update(me["dump"])
+        for key in ("flows", "tracks", "depths"):       # the card memory [mesh] needed
+            s.pop(key)
         if args.dump:          # saved before [modes] too, so that its failure leaves the dump
             d = Path(args.dump)
             d.mkdir(parents=True, exist_ok=True)
@@ -2058,7 +2298,8 @@ def main(argv=None) -> int:
         plain_ms_val=tr["flow"]["kernel"]["plain_ms"],
         library_ms_val=tr["flow"]["kernel"]["library_ms"],
         bound_ms_val=tr["flow"]["kernel"]["bound_ms"],
-        max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"], launches_sweep=sw["launches"])]
+        max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"], launches_sweep=sw["launches"],
+        launches_mesh=me["launches"])]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Flow-net inference: checkpoint loading, padding, and the single-pair,
-batched and pair-indexed applies (port of particlesfm_tpu/flow/infer.py).
+batched, pair-indexed and mesh-sharded applies (port of
+particlesfm_tpu/flow/infer.py).
 
 Checkpoints carry a sidecar JSON with the model configuration, so the compact
 (in-environment-trained) variant and the full width load through one path.
@@ -21,6 +22,7 @@ from ..io.checkpoint import (load_msgpack, raft_state_dict_from_jax,
                              raft_variables_from_torch, save_msgpack)
 from ..models.depth import resize_bilinear
 from ..models.raft import RAFT, compact_raft
+from ..parallel.mesh import mesh_for
 
 
 def pad_to_multiple(img, mult: int = 8):
@@ -134,26 +136,49 @@ def load_flow_apply_batch(ckpt, iters=None, scale: float = 1.0, device="cuda"):
     return apply
 
 
-def load_flow_apply_pairs(ckpt, iters=None, per_device: int = 8, scale: float = 1.0,
-                          refine_schedule=None, refine_max_total: float = 3.0,
-                          device="cuda"):
-    """Pair-indexed flow apply against a device-resident uint8 frame stack.
+def _replicas(ckpt, mesh):
+    """One RAFT per distinct device of `mesh`, each loaded from the same
+    converted state dict; and the checkpoint's meta."""
+    params, meta = load_flow_checkpoint(ckpt)
+    sd = raft_state_dict_from_jax(params)
+    models = {}
+    for d in mesh.distinct():
+        model = model_from_meta(meta)
+        model.load_state_dict(sd, strict=True)
+        models[d] = model.to(d).eval()
+    return models, meta
 
-    Returns `apply(stack, ia, ib) -> flows [N, H, W, 2]` (on `device`) where
-    `stack` is the uint8 frame stack [T, H, W, 3] (tensor or numpy; moved to
-    `device` once) and ia/ib are frame indices per pair. Pairs run in blocks
-    of `per_device`; each block's correlation pyramid is freed before the
-    next block starts. scale < 1 runs the net at reduced resolution
-    (`_net_flow`). With `refine_schedule` ((iters, sigma, radius) phases)
-    the photometric refinement runs right after the net on each block, at
-    full resolution, and the returned apply carries `.refines = True`.
+
+def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
+                          scale: float = 1.0, refine_schedule=None,
+                          refine_max_total: float = 3.0, device="cuda"):
+    """Pair-indexed flow apply against a device-resident uint8 frame stack,
+    data-parallel over a device mesh.
+
+    Returns `apply(stack, ia, ib) -> flows [N, H, W, 2]` (on the mesh's
+    entry 0) where `stack` is the uint8 frame stack [T, H, W, 3] (tensor or
+    numpy; moved to each mesh device once) and ia/ib are frame indices per
+    pair. Pairs run in blocks of `per_device * mesh size`; each block is
+    split into contiguous groups of `per_device`, one per mesh entry, so
+    every net call sees the batch it sees on one device (the last, ragged
+    block is split the same way, unpadded). Every shard of every block is
+    issued before the flows are gathered. scale < 1 runs the net at reduced
+    resolution (`_net_flow`). With `refine_schedule` ((iters, sigma, radius)
+    phases) the photometric refinement runs right after the net on each
+    shard, at full resolution, and the returned apply carries
+    `.refines = True`.
+
+    mesh=None: one device, `device`, or every visible card for a bare
+    "cuda" (`parallel.mesh.mesh_for`).
     """
-    dev = resolve_device(device)
-    model, meta = load_model(ckpt, dev)
+    if mesh is None:
+        mesh = mesh_for(resolve_device(device))
+    models, meta = _replicas(ckpt, mesh)
     n_iters = int(iters) if iters is not None else int(meta.get("iters", 12))
+    devs = mesh.flat
 
     @torch.inference_mode()
-    def run_block(stack, ia, ib):
+    def run_block(model, stack, ia, ib):
         raw1 = stack[ia].to(torch.float32)
         raw2 = stack[ib].to(torch.float32)
         H, W = raw1.shape[1:3]
@@ -171,12 +196,45 @@ def load_flow_apply_pairs(ckpt, iters=None, per_device: int = 8, scale: float = 
         return fl
 
     def apply(stack, ia, ib):
-        stack = torch.as_tensor(stack).to(dev)
-        ia = torch.as_tensor(np.asarray(ia, np.int64), device=dev)
-        ib = torch.as_tensor(np.asarray(ib, np.int64), device=dev)
-        out = [run_block(stack, ia[k:k + per_device], ib[k:k + per_device])
-               for k in range(0, len(ia), per_device)]
-        return torch.cat(out, 0)
+        stack = torch.as_tensor(stack)
+        stacks = {d: stack.to(d) for d in models}
+        ia = np.asarray(ia, np.int64)
+        ib = np.asarray(ib, np.int64)
+        idx = {d: (torch.as_tensor(ia, device=d), torch.as_tensor(ib, device=d))
+               for d in models}
+        out = []
+        for g, lo in enumerate(range(0, len(ia), per_device)):
+            d = devs[g % len(devs)]
+            a, b = idx[d]
+            out.append(run_block(models[d], stacks[d], a[lo:lo + per_device],
+                                 b[lo:lo + per_device]))
+        return torch.cat([f.to(devs[0]) for f in out], 0)
 
     apply.refines = refine_schedule is not None
+    return apply
+
+
+def load_flow_apply_sharded(ckpt, iters=None, mesh=None, per_device: int = 8,
+                            scale: float = 1.0, device="cuda"):
+    """Flow apply over an arbitrary list of image pairs, data-parallel over a
+    device mesh (reference flow/infer.py:288-330).
+
+    Returns `apply(img1s, img2s) -> flows [N, H, W, 2]` (numpy) for host
+    image pairs [N, H, W, 3] in [0, 255]: blocks of `per_device * mesh
+    size` pairs, each split into contiguous groups of `per_device`, one per
+    mesh entry, run through `load_flow_apply_batch`'s apply on that entry's
+    device. mesh=None as in `load_flow_apply_pairs`."""
+    if mesh is None:
+        mesh = mesh_for(resolve_device(device))
+    devs = mesh.flat
+    base = {d: load_flow_apply_batch(ckpt, iters=iters, scale=scale, device=d)
+            for d in mesh.distinct()}
+
+    def apply(img1s, img2s):
+        img1s = np.asarray(img1s, np.float32)
+        img2s = np.asarray(img2s, np.float32)
+        out = [base[devs[g % len(devs)]](img1s[lo:lo + per_device], img2s[lo:lo + per_device])
+               for g, lo in enumerate(range(0, img1s.shape[0], per_device))]
+        return np.concatenate([f.cpu().numpy() for f in out], 0)
+
     return apply

@@ -159,6 +159,7 @@ def bundle_adjust(
     solver: str = "dense",
     function_tolerance: float = 1e-6,
     focal_bounds: Optional[torch.Tensor] = None,   # [2] trust region for f
+    reduce_fn=None,
 ) -> BAState:
     """LM bundle adjustment; optionally solves the shared focal jointly (a
     bordered scalar column of the reduced system).
@@ -172,7 +173,16 @@ def bundle_adjust(
     below `function_tolerance` (Ceres' function_tolerance), 24 consecutive
     rejections, or `max_iterations` steps. With `focal_bounds` the focal
     step is clamped into the bounds before the points are back-substituted.
+
+    `reduce_fn` completes the cross-track reductions, at the reference's 14
+    points (particlesfm_tpu/globalsfm/ba.py:215-452): identity by default;
+    with the track axis split over shards it is the shards' sum
+    (parallel/sharded_ba.py), so the points stay shard-local and only the
+    reduced camera-system pieces and the costs cross shards. Sums over
+    cameras (PCG's dot products) act on values every shard holds and take
+    no reduction.
     """
+    R = reduce_fn if reduce_fn is not None else (lambda x: x)
     dev, dt = X.device, X.dtype
     V = q.shape[0]
     N, K = obs.frame_idx.shape
@@ -214,7 +224,7 @@ def bundle_adjust(
             xf = xf * f_free
             y = _mv(dHcc, xc)
             u = _mv(Wcp.transpose(-1, -2), xc[fidx]).sum(1)       # [N, 3]
-            y = y - per_cam(_mv(Wcp, _mv(Hpp_inv, u)[:, None]))
+            y = y - R(per_cam(_mv(Wcp, _mv(Hpp_inv, u)[:, None])))
             y = y + S_cf * xf
             yf = (S_cf * xc).sum() + S_ff * xf
             return y * fm, yf * f_free
@@ -252,17 +262,18 @@ def bundle_adjust(
 
     def lm_step(q, t, X, params, lam):
         w_obs, cost0 = _robust_weights(q, t, params, X, obs, loss_scale, use_soft_l1, pm)
+        cost0 = R(cost0)
         r, Jc, Jp, Jf = _residuals_jacobians(q, t, params, X, obs, w_obs)
         Jct = Jc.transpose(-1, -2)                                 # [N, K, 6, 2]
-        Hcc = per_cam(_mm(Jct, Jc))
-        gc = per_cam(_mv(Jct, r))
-        Hcf = per_cam(_mv(Jct, Jf))
+        Hcc = R(per_cam(_mm(Jct, Jc)))
+        gc = R(per_cam(_mv(Jct, r)))
+        Hcf = R(per_cam(_mv(Jct, Jf)))
         Jpt = Jp.transpose(-1, -2)
         Hpp = _mm(Jpt, Jp).sum(1)
         gp = _mv(Jpt, r).sum(1)
         Wcp = _mm(Jct, Jp)                                         # [N, K, 6, 3]
-        Hff = (Jf * Jf).sum()
-        gf = (Jf * r).sum()
+        Hff = R((Jf * Jf).sum())
+        gf = R((Jf * r).sum())
         Wfp = (Jf[..., :, None] * Jp).sum((1, 2))                  # [N, 3]
 
         dHcc = Hcc + lam * eye6
@@ -271,15 +282,15 @@ def bundle_adjust(
         Hpp_inv = _inv3(dHpp)
 
         HpiWfp = _mv(Hpp_inv, Wfp)
-        S_cf = Hcf - per_cam(_mv(Wcp, HpiWfp[:, None]))
+        S_cf = Hcf - R(per_cam(_mv(Wcp, HpiWfp[:, None])))
         S_cf = S_cf * fm * f_free
-        S_ff = (dHff - (Wfp * HpiWfp).sum()) * f_free + (1.0 - f_free)
+        S_ff = (dHff - R((Wfp * HpiWfp).sum())) * f_free + (1.0 - f_free)
         hp = _mv(Hpp_inv, gp)
-        rhs_c = (-gc + per_cam(_mv(Wcp, hp[:, None]))) * fm
-        rhs_f = (-gf + (Wfp * hp).sum()) * f_free
+        rhs_c = (-gc + R(per_cam(_mv(Wcp, hp[:, None])))) * fm
+        rhs_f = (-gf + R((Wfp * hp).sum())) * f_free
 
         if solver == "dense":
-            S = reduced_system(Wcp, Hpp_inv)
+            S = R(reduced_system(Wcp, Hpp_inv))
             S = S + torch.block_diag(*dHcc)
             Sfull = torch.cat([torch.cat([S, S_cf.reshape(6 * V, 1)], dim=1),
                                torch.cat([S_cf.reshape(1, 6 * V), S_ff.reshape(1, 1)], dim=1)],
@@ -308,6 +319,7 @@ def bundle_adjust(
         params_new = params + torch.stack([df, df, *([torch.zeros_like(df)] * 3)])
         _, cost1 = _robust_weights(q_new, t_new, params_new, X_new, obs, loss_scale,
                                    use_soft_l1, pm)
+        cost1 = R(cost1)
         accept = cost1 < cost0
         q = torch.where(accept, q_new, q)
         t = torch.where(accept, t_new, t)
@@ -327,7 +339,7 @@ def bundle_adjust(
         rej = 0 if accept else rej + 1
         it += 1
     _, final_cost = _robust_weights(q, t, params, X, obs, loss_scale, use_soft_l1, pm)
-    return BAState(q=q, t=t, X=X, params=params, cost=final_cost, lam=lam, iters=it)
+    return BAState(q=q, t=t, X=X, params=params, cost=R(final_cost), lam=lam, iters=it)
 
 
 def refine_shared_focal(q, t, params, X, obs: TrackObs, point_mask):

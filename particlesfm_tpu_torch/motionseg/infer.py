@@ -1,12 +1,14 @@
 """Trajectory motion-segmentation inference: windowing + cross-window label merge
-(port of particlesfm_tpu/motionseg/infer.py:26-160, single device).
+(port of particlesfm_tpu/motionseg/infer.py).
 
 - cut the sequence into non-overlapping windows of `window_size`, the last
   one realigned to the sequence end;
 - per window, take trajectories with >= min_length observations inside,
   capped at traj_max_num with numpy's generator (the reference's sample);
 - run the model on every window at once, the track axis padded to the widest
-  window and cut into equal chunks, threshold the sigmoid;
+  window and cut into equal chunks, threshold the sigmoid; windows are
+  independent, so with a device mesh each chunk's window axis is split over
+  the mesh's devices;
 - write each window's label onto every observation frame of each trajectory.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_frames
 from ..tracks.store import TrackArrays, sample_inside_window
 
 
@@ -92,6 +95,20 @@ def track_chunks(traj: np.ndarray, valid: np.ndarray, max_cells: int = 65536):
             for c in range(nch)]
 
 
+def _run_windows(apply_fn, traj, depth, valid, mesh):
+    """Logits [B, K] of one chunk; with `mesh` the window axis is padded to
+    a multiple of the mesh size by repeating the last window, split into
+    contiguous shards (`shard_frames`), each shard's depth placed on its
+    device (where the apply runs it), and the logits gathered on entry 0."""
+    if mesh is None:
+        return apply_fn(traj, depth, valid)
+    parts, nb = shard_frames(depth, mesh)
+    per = parts[0].shape[0]
+    rows = np.minimum(np.arange(per * len(parts)), nb - 1).reshape(len(parts), per)
+    logits = [apply_fn(traj[r], d, valid[r]) for r, d in zip(rows, parts)]
+    return torch.cat([lg.to(parts[0].device) for lg in logits])[:nb]
+
+
 def segment_tracks(
     apply_fn: Callable,
     tracks: TrackArrays,
@@ -102,6 +119,7 @@ def segment_tracks(
     min_length: int = 3,
     threshold: float = 0.5,
     seed: int = 0,
+    mesh=None,
     max_cells: int = 65536,        # max windows x tracks per forward
     log=None,
 ) -> TrackArrays:
@@ -109,8 +127,10 @@ def segment_tracks(
 
     apply_fn(traj [B,K,L,2] array, depth [B,L,H,W] tensor, valid [B,K,L] array)
     -> logits [B,K] tensor. `traj` is u16 fixed point (x 65535 / frame size)
-    when apply_fn.accepts_u16, else float32 in [0, 1]. Returns TrackArrays
-    with `labels`.
+    when apply_fn.accepts_u16, else float32 in [0, 1]. With `mesh` (a
+    parallel.mesh.Mesh) each chunk's windows are split over its devices
+    (`_run_windows`); windows are independent, so the labels are those of
+    the unsplit run. Returns TrackArrays with `labels`.
     """
     T = tracks.num_frames
     labels = np.zeros((tracks.num_tracks, T), np.int8)
@@ -127,7 +147,8 @@ def segment_tracks(
 
     t1 = time.perf_counter()
     chunks = track_chunks(traj, valid, max_cells)
-    logits = torch.cat([apply_fn(t, depth, v) for t, v in chunks], dim=1)[:, :kmax]
+    logits = torch.cat([_run_windows(apply_fn, t, depth, v, mesh) for t, v in chunks],
+                       dim=1)[:, :kmax]
     dyn_all = (torch.sigmoid(logits) > threshold).cpu().numpy()      # [B, kmax]
     t2 = time.perf_counter()
     if log is not None:

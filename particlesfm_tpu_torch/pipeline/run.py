@@ -25,6 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..io.images import load_image_stack
+from ..parallel.mesh import Mesh, mesh_for
 from ..utils.config import Config, apply_overrides, save_config
 from ..utils.profiling import StageTimer
 from . import stages
@@ -102,7 +103,7 @@ DEFAULT_DEPTH_CKPT = _CKPT_DIR / "depth_synth.msgpack"
 # msgpack and build its net again. Keyed on checkpoint path + mtime (a
 # long-lived process that retrains or overwrites a checkpoint must not keep
 # serving stale weights), the config fields that change the apply, and the
-# device: a CPU apply and a CUDA apply are different entries.
+# mesh's device tuple: applies on other devices are different entries.
 _APPLY_CACHE: dict = {}
 
 
@@ -119,9 +120,16 @@ def _memo(key, build):
     return _APPLY_CACHE[key]
 
 
+def _as_mesh(device):
+    """A Mesh as is; a device as the mesh an entry point given it runs on
+    (every visible card for a bare "cuda", else the device alone)."""
+    return device if isinstance(device, Mesh) else mesh_for(device)
+
+
 def _load_raft_apply(cfg: Config, device):
-    """Pair-indexed flow apply with refinement fused after the net; defaults
-    to the repo's compact checkpoint."""
+    """Pair-indexed flow apply with refinement fused after the net, over
+    the mesh of `device` (a Mesh or a device, `_as_mesh`); defaults to the
+    repo's compact checkpoint."""
     ckpt = cfg.flow.checkpoint
     if ckpt is None and DEFAULT_RAFT_CKPT.exists():
         ckpt = str(DEFAULT_RAFT_CKPT)
@@ -133,56 +141,72 @@ def _load_raft_apply(cfg: Config, device):
         tuple(tuple(p) for p in cfg.flow.refine_schedule)
         if cfg.flow.photometric_refine else None
     )
+    mesh = _as_mesh(device)
     key = ("raft", _ckpt_key(ckpt), cfg.flow.iters, cfg.flow.per_device,
-           cfg.flow.infer_scale, schedule, cfg.flow.refine_max_total_px, str(device))
+           cfg.flow.infer_scale, schedule, cfg.flow.refine_max_total_px, mesh.key())
     return _memo(key, lambda: load_flow_apply_pairs(
-        ckpt, iters=cfg.flow.iters, per_device=cfg.flow.per_device,
+        ckpt, iters=cfg.flow.iters, mesh=mesh, per_device=cfg.flow.per_device,
         scale=cfg.flow.infer_scale, refine_schedule=schedule,
-        refine_max_total=cfg.flow.refine_max_total_px, device=device,
+        refine_max_total=cfg.flow.refine_max_total_px,
     ))
 
 
 def _load_depth_apply(cfg: Config, device):
-    """Depth apply from a checkpoint (default: the repo's DepthNet):
-    `apply(stack) -> [T, H, W]` on `device`, normalized per frame to [0, 1]
-    and rounded to float16 and back, as the reference hands it to the seg
-    stage. `stack` is the uint8 frame stack [T, H, W, 3]; frames run in
-    blocks of 4."""
+    """Depth apply from a checkpoint (default: the repo's DepthNet) over
+    the mesh of `device` (`_as_mesh`): `apply(stack) -> [T, H, W]` on the
+    mesh's entry 0, normalized per frame to [0, 1] and rounded to float16
+    and back, as the reference hands it to the seg stage. `stack` is the
+    uint8 frame stack [T, H, W, 3]."""
     ckpt = cfg.depth.checkpoint
     if ckpt is None and DEFAULT_DEPTH_CKPT.exists():
         ckpt = str(DEFAULT_DEPTH_CKPT)
     if ckpt is None:
         return None
-    return _memo(("depth", _ckpt_key(ckpt), cfg.depth.base, str(device)),
-                 lambda: _build_depth_apply(ckpt, cfg.depth.base, device))
+    mesh = _as_mesh(device)
+    return _memo(("depth", _ckpt_key(ckpt), cfg.depth.base, mesh.key()),
+                 lambda: _build_depth_apply(ckpt, cfg.depth.base, mesh))
 
 
 def _build_depth_apply(ckpt, base: int, device):
+    """Frames run in blocks of 4 per mesh entry (4 * mesh size in all,
+    reference run.py:176-180): each block is split into groups of 4, one
+    per entry, each on that entry's DepthNet replica; the depths are
+    gathered on entry 0."""
     from ..io.checkpoint import depth_state_dict_from_jax, load_msgpack
     from ..models.depth import DepthNet, normalize_depth
 
+    mesh = _as_mesh(device)
     blob = load_msgpack(ckpt)
-    model = DepthNet(base=base)
-    model.load_state_dict(
-        depth_state_dict_from_jax(blob["params"], blob.get("batch_stats", {})), strict=True)
-    model = model.to(device).eval()
-    block = 4
+    sd = depth_state_dict_from_jax(blob["params"], blob.get("batch_stats", {}))
+    models = {}
+    for d in mesh.distinct():
+        model = DepthNet(base=base)
+        model.load_state_dict(sd, strict=True)
+        models[d] = model.to(d).eval()
+    devs = mesh.flat
+    per = 4
 
     @torch.inference_mode()
     def apply(stack):
-        stack = torch.as_tensor(stack).to(device)
+        stack = torch.as_tensor(stack)
+        stacks = {d: stack.to(d) for d in models}
         out = []
-        for k in range(0, stack.shape[0], block):
-            x = stack[k:k + block].to(torch.float32).permute(0, 3, 1, 2).contiguous()
-            out.append(normalize_depth(model(x)).to(torch.float16).to(torch.float32))
-        return torch.cat(out)
+        for g, lo in enumerate(range(0, stack.shape[0], per)):
+            d = devs[g % len(devs)]
+            x = stacks[d][lo:lo + per].to(torch.float32).permute(0, 3, 1, 2).contiguous()
+            out.append(normalize_depth(models[d](x)).to(torch.float16).to(torch.float32))
+        return torch.cat([o.to(devs[0]) for o in out])
 
     return apply
 
 
 def _load_seg_apply(cfg: Config, device):
-    """Motion-seg apply from a checkpoint (default: the repo's TrajOADepth):
-    `apply(traj, depth, valid) -> logits [B, K]` on `device`.
+    """Motion-seg apply from a checkpoint (default: the repo's TrajOADepth)
+    with a replica on each device of the mesh of `device` (`_as_mesh`):
+    `apply(traj, depth, valid) -> logits [B, K]`, computed on the device of
+    `depth` when it is a tensor on one of the mesh's devices (how
+    `segment_tracks` runs each window shard on its device), else on the
+    mesh's entry 0.
 
     A sidecar <ckpt>.json may carry {"input_hw": [h, w]} (the model's depth
     resolution; depth maps are resized to it on the fly) and a calibrated
@@ -192,11 +216,12 @@ def _load_seg_apply(cfg: Config, device):
         ckpt = str(DEFAULT_SEG_CKPT)
     if ckpt is None:
         return None
-    return _memo(("seg", _ckpt_key(ckpt), tuple(cfg.motionseg.resolution), str(device)),
-                 lambda: _build_seg_apply(ckpt, tuple(cfg.motionseg.resolution), device))
+    mesh = _as_mesh(device)
+    return _memo(("seg", _ckpt_key(ckpt), tuple(cfg.motionseg.resolution), mesh.key()),
+                 lambda: _build_seg_apply(ckpt, tuple(cfg.motionseg.resolution), mesh))
 
 
-def _build_seg_apply(ckpt, input_hw: tuple, device):
+def _build_seg_apply(ckpt, input_hw: tuple, mesh: Mesh):
     from ..io.checkpoint import load_msgpack, motionseg_state_dict_from_jax
     from ..models.depth import resize_bilinear
     from ..models.motionseg import TrajOADepth
@@ -208,20 +233,23 @@ def _build_seg_apply(ckpt, input_hw: tuple, device):
         input_hw = tuple(meta["input_hw"])
         sidecar_threshold = meta.get("threshold")
     blob = load_msgpack(ckpt)
-    model = TrajOADepth(input_hw=input_hw)
-    model.load_state_dict(
-        motionseg_state_dict_from_jax(blob["params"], blob.get("batch_stats", {})),
-        strict=True)
-    model = model.to(device).eval()
+    sd = motionseg_state_dict_from_jax(blob["params"], blob.get("batch_stats", {}))
+    models = {}
+    for d in mesh.distinct():
+        model = TrajOADepth(input_hw=input_hw)
+        model.load_state_dict(sd, strict=True)
+        models[d] = model.to(d).eval()
 
     @torch.inference_mode()
     def apply(traj, depth, valid):
+        depth = torch.as_tensor(depth)
+        dev = depth.device if depth.device in models else mesh.flat[0]
         traj = np.asarray(traj)
-        t = torch.from_numpy(traj.astype(np.float32)).to(device)
+        t = torch.from_numpy(traj.astype(np.float32)).to(dev)
         if traj.dtype == np.uint16:
             t = t * (1.0 / 65535.0)
-        depth = resize_bilinear(torch.as_tensor(depth).to(device, torch.float32), input_hw)
-        return model(t, depth, torch.from_numpy(np.asarray(valid)).to(device))
+        depth = resize_bilinear(depth.to(dev, torch.float32), input_hw)
+        return models[dev](t, depth, torch.from_numpy(np.asarray(valid)).to(dev))
 
     apply.accepts_u16 = True
     apply.threshold = sidecar_threshold
@@ -231,17 +259,24 @@ def _build_seg_apply(ckpt, input_hw: tuple, device):
 def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
     """Run the staged pipeline on one sequence; returns the Reconstruction
     (or, with --skip_sfm, the TrackArrays, labeled unless the scene is
-    taken as static)."""
+    taken as static).
+
+    The flow, depth and motion-seg applies run data-parallel over a mesh:
+    every visible card for device="cuda", the one device for "cpu" or
+    "cuda:k". The other stages run on the mesh's entry 0."""
     dev = resolve_device(device)
+    mesh = mesh_for(dev)
+    dev = mesh.flat[0]
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     timer = StageTimer(report_path=out / "timings.txt")
     save_config(cfg, out / "config.json")
     images, names = load_image_stack(image_dir)
     T, H, W = images.shape[:3]
-    log(f"[pipeline] {T} frames at {W}x{H} from {image_dir} on {dev}")
+    log(f"[pipeline] {T} frames at {W}x{H} from {image_dir} on {dev}"
+        + (f" (mesh of {mesh.size}: {', '.join(mesh.key())})" if mesh.size > 1 else ""))
 
-    raft_apply = _load_raft_apply(cfg, dev)
+    raft_apply = _load_raft_apply(cfg, mesh)
     stack_box = [None]
 
     def device_stack():
@@ -262,13 +297,13 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
     # motion segmentation (skipped with --assume_static); a missing depth
     # source degrades to assume-static, as in the reference
     if not cfg.assume_static:
-        seg_apply = _load_seg_apply(cfg, dev)
+        seg_apply = _load_seg_apply(cfg, mesh)
         if seg_apply is None:
             log("[pipeline] no segmentation checkpoint; treating scene as static")
         else:
             try:
                 with timer.stage("depth"):
-                    depths = stages.depth_stage(images, out, cfg, _load_depth_apply(cfg, dev),
+                    depths = stages.depth_stage(images, out, cfg, _load_depth_apply(cfg, mesh),
                                                 device_stack=device_stack, log=log)
             except stages.MissingDepthError as e:
                 log(f"[pipeline] WARNING: {e}; degrading to assume-static")
@@ -276,7 +311,7 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
             if depths is not None:
                 with timer.stage("motion_seg"):
                     tracks = stages.motionseg_stage(tracks, depths, (H, W), out, cfg,
-                                                    seg_apply, log=log)
+                                                    seg_apply, mesh=mesh, log=log)
 
     # stage 4: global SfM
     result = tracks

@@ -339,9 +339,11 @@ def motionseg_stage(
     out_dir: Path,
     cfg: Config,
     seg_apply: Optional[Callable] = None,
+    mesh=None,
     log=print,
 ) -> TrackArrays:
-    """Label tracks dynamic/static; writes trajectories_labeled/tracks.npz."""
+    """Label tracks dynamic/static; writes trajectories_labeled/tracks.npz.
+    With `mesh` the windows run data-parallel over its devices."""
     labeled_path = Path(out_dir) / "trajectories_labeled" / "tracks.npz"
     if cfg.skip_exists and labeled_path.exists():
         log("[motionseg] reusing existing labeled tracks")
@@ -361,6 +363,7 @@ def motionseg_stage(
         window_size=cfg.motionseg.window_size,
         traj_max_num=cfg.motionseg.traj_max_num,
         threshold=thr,
+        mesh=mesh,
         log=log,
     )
     labeled_path.parent.mkdir(parents=True, exist_ok=True)

@@ -43,7 +43,11 @@ the seg stage's model input (u16 tracks) with the card's logits. Prints:
   JAX package's and the port's (CPU) sfm_stage on the subset against the
   card's poses: registered frames, Sim3 ATE against the renderer and
   between the pose sets, and BA's focal; each package again with the track
-  coordinates scaled by 1 + 2^-22 (its own movement under rounding).
+  coordinates scaled by 1 + 2^-22 (its own movement under rounding);
+- [mesh] the JAX package's sharded_bundle_adjust (shard_map over 4 virtual
+  CPU devices, XLA_FLAGS=--xla_force_host_platform_device_count=4, set
+  here) on [slice]'s last BA problem, against the card's 4-shard result on
+  it: cost, q, t and X differences.
 """
 from __future__ import annotations
 
@@ -53,6 +57,9 @@ import sys
 from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=4").strip()
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))   # both packages
 
 import numpy as np  # noqa: E402
@@ -376,6 +383,38 @@ def _centers_w2c(w2c) -> np.ndarray:
     return -np.einsum("nji,nj->ni", R, t)
 
 
+def compare_mesh(z) -> None:
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from particlesfm_tpu.globalsfm.tracks3d import TrackObs
+    from particlesfm_tpu.parallel import make_mesh
+    from particlesfm_tpu.parallel.sharded_ba import sharded_bundle_adjust
+
+    n = int(z["mesh_shards"])
+    kw = json.loads(str(z["mesh_ba_kw"]))
+    fb = z["mesh_ba_focal_bounds"]
+    if not np.isnan(fb).any():
+        kw["focal_bounds"] = jnp.asarray(fb)
+    obs = TrackObs(jnp.asarray(z["mesh_ba_fidx"], jnp.int32), jnp.asarray(z["mesh_ba_uv"]),
+                   jnp.asarray(z["mesh_ba_mask"]))
+    st = sharded_bundle_adjust(
+        make_mesh(devices=jax.devices()[:n]), jnp.asarray(z["mesh_ba_q"]),
+        jnp.asarray(z["mesh_ba_t"]), jnp.asarray(z["mesh_ba_params"]),
+        jnp.asarray(z["mesh_ba_X"]), obs, jnp.asarray(z["mesh_ba_free"]),
+        jnp.asarray(z["mesh_ba_pm"]), **kw)
+    cost, card = float(st.cost), float(z["mesh_ba_out_cost"])
+    gap = {k: float(np.abs(np.asarray(getattr(st, k)) - z[f"mesh_ba_out_{k}"]).max())
+           for k in ("q", "t", "X")}
+    print(f"[mesh] sharded BA on [slice]'s last BA problem ({z['mesh_ba_q'].shape[0]} views, "
+          f"{z['mesh_ba_X'].shape[0]} tracks), JAX on {n} virtual CPU devices vs the card's "
+          f"{n} shards: cost {cost:.6e} / {card:.6e} ({abs(cost - card) / max(card, 1e-30):.2e} "
+          f"relative), max |diff| q {gap['q']:.3e}, t {gap['t']:.3e}, X {gap['X']:.3e}; LM "
+          f"iterations {int(st.iters)} / {int(z['mesh_ba_out_iters'])}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dump", help="slice_dump.npz written by chip_smoke.py --dump")
@@ -420,6 +459,8 @@ def main(argv=None) -> int:
         compare_pnp(z)
     compare_stride2(z)
     compare_sweep(Path(args.dump).parent)
+    if "mesh_ba_X" in z.files:
+        compare_mesh(z)
     return 0
 
 

@@ -60,26 +60,34 @@ def test_touched_checkpoint_gives_a_new_apply(tmp_path):
 
 
 def test_config_field_and_device_are_part_of_the_key(monkeypatch):
+    """The key carries the mesh's device tuple: "cuda" is every visible card
+    (two here, faked), "cuda:1" that card alone."""
     built = []
 
     def fake(*args, **kw):
-        built.append(kw.get("device", args[-1] if args else None))
+        built.append(kw.get("mesh", args[-1] if args else None).key())
         return object()
 
     monkeypatch.setattr(infer, "load_flow_apply_pairs", fake)
     monkeypatch.setattr(run, "_build_depth_apply", fake)
     monkeypatch.setattr(run, "_build_seg_apply", fake)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda, cuda1 = torch.device("cuda"), torch.device("cuda", 1)
     cfg = Config()
     a = run._load_raft_apply(cfg, CPU)
     cfg.flow.iters = 4
     b = run._load_raft_apply(cfg, CPU)
-    c = run._load_raft_apply(cfg, torch.device("cuda"))
-    assert len({id(a), id(b), id(c)}) == 3
-    assert run._load_raft_apply(cfg, torch.device("cuda")) is c
+    c = run._load_raft_apply(cfg, cuda)
+    d = run._load_raft_apply(cfg, cuda1)
+    assert len({id(a), id(b), id(c), id(d)}) == 4
+    assert run._load_raft_apply(cfg, cuda) is c
+    assert run._load_raft_apply(cfg, run.mesh_for(cuda)) is c
     for fn in (run._load_depth_apply, run._load_seg_apply):
-        x, y = fn(cfg, CPU), fn(cfg, torch.device("cuda"))
-        assert x is not y and fn(cfg, CPU) is x and fn(cfg, torch.device("cuda")) is y
-    assert [str(d) for d in built] == ["cpu", "cpu", "cuda"] + ["cpu", "cuda"] * 2
+        x, y = fn(cfg, CPU), fn(cfg, cuda)
+        assert x is not y and fn(cfg, CPU) is x and fn(cfg, cuda) is y
+    both = ("cuda:0", "cuda:1")
+    assert built == [("cpu",), ("cpu",), both, ("cuda:1",)] + [("cpu",), both] * 2
 
 
 T, H, W = 6, 64, 96

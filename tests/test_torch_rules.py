@@ -35,7 +35,8 @@ def test_port_imports_no_jax_or_reference():
                 "synth/family_b.py", "eval/traj_iou.py", "eval/plots.py", "eval/sintel.py",
                 "eval/scannet.py", "eval/__init__.py", "io/avi.py", "motionseg/visualize.py",
                 "sfm/colors.py", "sfm/html_viewer.py", "sfm/visualize.py", "utils/timer.py",
-                "utils/__init__.py", "utils/profiling.py"):
+                "utils/__init__.py", "utils/profiling.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/sharded_ba.py"):
         assert PKG / mod in files, mod
     bad = {f"{f.relative_to(PKG.parent)}: {m}" for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
@@ -64,6 +65,38 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
         run.main(["--image_dir", str(tmp_path), "--output_dir", str(tmp_path / "o"),
                   "--assume_static", "--skip_sfm", "--set", "flow.selfcal=false"])
     assert load_flow_apply_pairs(DEFAULT_RAFT_CKPT, device="cpu").refines is False
+
+
+def test_mesh_needs_cuda_unless_devices_are_given(monkeypatch):
+    """make_mesh() covers every visible card and raises without one; a mesh
+    of given devices (repeats allowed) needs no CUDA."""
+    from particlesfm_tpu_torch.parallel import make_mesh, mesh_for
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_for("cuda")
+    assert make_mesh(devices=["cpu"] * 3).key() == ("cpu",) * 3
+    assert mesh_for("cpu").key() == ("cpu",)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert make_mesh().key() == ("cuda:0", "cuda:1")
+    assert mesh_for("cuda").key() == ("cuda:0", "cuda:1")
+    assert mesh_for("cuda:1").key() == ("cuda:1",)
+
+
+def test_init_distributed_defaults_to_nccl(monkeypatch):
+    import torch.distributed as dist
+
+    from particlesfm_tpu_torch.parallel import init_distributed
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: calls.append(kw))
+    init_distributed()
+    init_distributed("host:1234", 2, 1)
+    assert calls == [dict(backend="nccl", init_method="env://"),
+                     dict(backend="nccl", init_method="tcp://host:1234", world_size=2, rank=1)]
 
 
 def test_trainers_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
