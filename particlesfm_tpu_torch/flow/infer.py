@@ -23,6 +23,7 @@ from ..io.checkpoint import (load_msgpack, raft_state_dict_from_jax,
 from ..models.depth import resize_bilinear
 from ..models.raft import RAFT, compact_raft
 from ..parallel.mesh import mesh_for
+from ..utils import profiling
 
 
 def pad_to_multiple(img, mult: int = 8):
@@ -166,7 +167,9 @@ def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
     resolution (`_net_flow`). With `refine_schedule` ((iters, sigma, radius)
     phases) the photometric refinement runs right after the net on each
     shard, at full resolution, and the returned apply carries
-    `.refines = True`.
+    `.refines = True`. With tracing on (`utils.profiling`) each block's net
+    and refinement are spans `flow.net` and `flow.refine`, timed on the
+    block's own device.
 
     mesh=None: one device, `device`, or every visible card for a bare
     "cuda" (`parallel.mesh.mesh_for`).
@@ -179,20 +182,22 @@ def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
 
     @torch.inference_mode()
     def run_block(model, stack, ia, ib):
-        raw1 = stack[ia].to(torch.float32)
-        raw2 = stack[ib].to(torch.float32)
-        H, W = raw1.shape[1:3]
-        ph, pw = (-H) % 8, (-W) % 8
-        i1, i2 = raw1, raw2
-        if ph or pw:        # edge-pad to a multiple of 8 (infer.py:194-199)
-            i1, i2 = _pad8(raw1, ph, pw), _pad8(raw2, ph, pw)
-        fl = _net_flow(model, i1, i2, n_iters, scale)[:, :H, :W]
+        with profiling.span("flow.net", device=stack.device):
+            raw1 = stack[ia].to(torch.float32)
+            raw2 = stack[ib].to(torch.float32)
+            H, W = raw1.shape[1:3]
+            ph, pw = (-H) % 8, (-W) % 8
+            i1, i2 = raw1, raw2
+            if ph or pw:        # edge-pad to a multiple of 8 (infer.py:194-199)
+                i1, i2 = _pad8(raw1, ph, pw), _pad8(raw2, ph, pw)
+            fl = _net_flow(model, i1, i2, n_iters, scale)[:, :H, :W]
         if refine_schedule:
             from .refine import photometric_refine_scheduled
 
-            fl = photometric_refine_scheduled(
-                raw1 / 255.0, raw2 / 255.0, fl,
-                schedule=refine_schedule, max_total=refine_max_total)
+            with profiling.span("flow.refine", device=stack.device):
+                fl = photometric_refine_scheduled(
+                    raw1 / 255.0, raw2 / 255.0, fl,
+                    schedule=refine_schedule, max_total=refine_max_total)
         return fl
 
     def apply(stack, ia, ib):

@@ -13,7 +13,6 @@
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -135,7 +134,6 @@ def segment_tracks(
     T = tracks.num_frames
     labels = np.zeros((tracks.num_tracks, T), np.int8)
 
-    t0 = time.perf_counter()
     wins, samples, traj, valid = window_batch(
         tracks, image_hw, window_size, traj_max_num, min_length, seed,
         u16=bool(getattr(apply_fn, "accepts_u16", False)))
@@ -145,15 +143,12 @@ def segment_tracks(
     depth_maps = torch.as_tensor(depth_maps)
     depth = depth_maps[torch.as_tensor(np.stack(wins), device=depth_maps.device)]
 
-    t1 = time.perf_counter()
     chunks = track_chunks(traj, valid, max_cells)
     logits = torch.cat([_run_windows(apply_fn, t, depth, v, mesh) for t, v in chunks],
                        dim=1)[:, :kmax]
     dyn_all = (torch.sigmoid(logits) > threshold).cpu().numpy()      # [B, kmax]
-    t2 = time.perf_counter()
     if log is not None:
-        log(f"[motionseg] window-sample {t1 - t0:.1f}s, forward {t2 - t1:.1f}s "
-            f"({len(chunks)} chunks of {chunks[0][0].shape[1]} x {B} windows)")
+        log(f"[motionseg] {len(chunks)} chunks of {chunks[0][0].shape[1]} x {B} windows")
 
     for b, (locs, present, rows) in enumerate(samples):
         obs = present & dyn_all[b, :locs.shape[0]][:, None]

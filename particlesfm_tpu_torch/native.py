@@ -11,7 +11,11 @@ entry point returns None and its caller runs the numpy version instead.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Optional
 
@@ -19,17 +23,31 @@ import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
 _LIB_PATH = _NATIVE_DIR / "libparticlesfm_host.so"
+_LOCK_PATH = _NATIVE_DIR / ".build.lock"
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
 def ensure_built(force: bool = False) -> bool:
-    """Compile the shared library if needed. Returns True when it exists."""
+    """Compile the shared library if needed. Returns True when it exists.
+
+    Safe across processes: one builder at a time (a lock file beside the
+    library), each building in a directory of its own and renaming the
+    finished library into place, so the library's path never names a
+    half-written file."""
     if _LIB_PATH.exists() and not force:
         return True
     try:
-        subprocess.run(["make", "-s", "-C", str(_NATIVE_DIR)], check=True,
-                       capture_output=True, timeout=120)
+        with open(_LOCK_PATH, "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if _LIB_PATH.exists() and not force:
+                return True             # built while this process waited
+            with tempfile.TemporaryDirectory(prefix=".build-", dir=_NATIVE_DIR) as tmp:
+                for f in ("Makefile", "hostops.cc"):
+                    shutil.copy2(_NATIVE_DIR / f, tmp)
+                subprocess.run(["make", "-s", "-C", tmp], check=True,
+                               capture_output=True, timeout=120)
+                os.replace(Path(tmp) / _LIB_PATH.name, _LIB_PATH)
     except (OSError, subprocess.CalledProcessError, subprocess.TimeoutExpired):
         return False
     return _LIB_PATH.exists()

@@ -269,7 +269,7 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
     dev = mesh.flat[0]
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    timer = StageTimer(report_path=out / "timings.txt")
+    timer = StageTimer(report_path=out / "timings.txt", device=dev)
     save_config(cfg, out / "config.json")
     images, names = load_image_stack(image_dir)
     T, H, W = images.shape[:3]

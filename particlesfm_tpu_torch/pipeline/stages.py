@@ -12,7 +12,6 @@ incremental mapper -> COLMAP model, converted outputs, stats).
 from __future__ import annotations
 
 import json
-import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -33,6 +32,7 @@ from ..sfm.incremental import run_incremental_mapper
 from ..sfm.manager import run_reconstruction_manager, write_models
 from ..sfm.mapper import _failed, run_global_mapper
 from ..sfm.stats import compute_model_stats, format_model_stats
+from ..utils import profiling
 from ..utils.config import Config
 
 
@@ -56,13 +56,12 @@ def _write_flow_selfcal(result, height, width, out_dir: Path, cfg, log):
         return
     if cfg.skip_exists and p.exists():
         return
-    t0 = time.perf_counter()
-    info = estimate_focal_from_flows(result, height, width, seed=0)
-    p.write_text(json.dumps(info, indent=2))
+    with profiling.span("flow.selfcal", device=result["flow_f"].device):
+        info = estimate_focal_from_flows(result, height, width, seed=0)
+        p.write_text(json.dumps(info, indent=2))
     log(f"[flow] self-calibrated focal {info['focal']:.1f} "
         f"(conf {info['confidence']:.2f}, dip {info['dip']:.2f}, "
         f"n {info['num_pairs']})")
-    log(f"[flow] selfcal: {time.perf_counter() - t0:.3f}s")
 
 
 def read_flow_selfcal(out_dir: Path, cfg) -> Optional[tuple]:
@@ -161,12 +160,7 @@ def flow_stage(
     for name, stride, d, npairs in todo:
         ia_all.append(np.arange(npairs) + (0 if stride > 0 else abs(stride)))
         ib_all.append(np.arange(npairs) + (abs(stride) if stride > 0 else 0))
-    t0 = time.perf_counter()
     flows_all = raft_apply(device_stack, np.concatenate(ia_all), np.concatenate(ib_all))
-    if flows_all.is_cuda:
-        torch.cuda.synchronize(flows_all.device)
-    log(f"[flow] net+refine: {time.perf_counter() - t0:.3f}s for "
-        f"{flows_all.shape[0]} pairs")
     off = 0
     for name, stride, d, npairs in todo:
         result[name] = flows_all[off:off + npairs]
@@ -212,17 +206,18 @@ def _refine_standalone(stack, ia, ib, flows, cfg, block: int = 8):
         return stack[torch.as_tensor(idx, device=stack.device)].to(torch.float32) / 255.0
 
     out = []
-    for s in range(0, len(ia), block):
-        a, b, f0 = ia[s:s + block], ib[s:s + block], flows[s:s + block]
-        pad = block - len(a)
-        if pad:
-            a = np.concatenate([a, np.repeat(a[-1:], pad)])
-            b = np.concatenate([b, np.repeat(b[-1:], pad)])
-            f0 = torch.cat([f0, f0[-1:].expand(pad, *f0.shape[1:])])
-        ref = photometric_refine_scheduled(
-            frames(a), frames(b), f0, schedule=cfg.flow.refine_schedule,
-            max_total=cfg.flow.refine_max_total_px)
-        out.append(ref[:block - pad])
+    with profiling.span("flow.refine", device=stack.device):
+        for s in range(0, len(ia), block):
+            a, b, f0 = ia[s:s + block], ib[s:s + block], flows[s:s + block]
+            pad = block - len(a)
+            if pad:
+                a = np.concatenate([a, np.repeat(a[-1:], pad)])
+                b = np.concatenate([b, np.repeat(b[-1:], pad)])
+                f0 = torch.cat([f0, f0[-1:].expand(pad, *f0.shape[1:])])
+            ref = photometric_refine_scheduled(
+                frames(a), frames(b), f0, schedule=cfg.flow.refine_schedule,
+                max_total=cfg.flow.refine_max_total_px)
+            out.append(ref[:block - pad])
     return torch.cat(out)
 
 
@@ -267,29 +262,24 @@ def tracking_stage(
     def dev(x):
         return torch.as_tensor(x, device=device if not torch.is_tensor(x) else x.device)
 
-    t0 = time.perf_counter()
     ff = dev(flows["flow_f"])
-    occ, _ = flow_check(ff, dev(flows["flow_b"]), cfg.track.flow_check_thres)
-    use_pc = "flow_f2" in flows
-    ff2, occ2 = None, None
-    if use_pc:
-        ff2 = dev(flows["flow_f2"])
-        occ2, _ = flow_check(ff2, dev(flows["flow_b2"]), cfg.track.flow_check_thres)
+    with profiling.span("tracks.scan", device=ff.device):
+        occ, _ = flow_check(ff, dev(flows["flow_b"]), cfg.track.flow_check_thres)
+        use_pc = "flow_f2" in flows
+        ff2, occ2 = None, None
+        if use_pc:
+            ff2 = dev(flows["flow_f2"])
+            occ2, _ = flow_check(ff2, dev(flows["flow_b2"]), cfg.track.flow_check_thres)
 
-    tcfg = TrackerConfig(
-        sample_ratio=cfg.track.sample_ratio,
-        capacity=cfg.track.capacity,
-        path_consistency=use_pc,
-    )
-    out = run_tracker(ff, occ, ff2, occ2, tcfg, height, width)
-    if out.positions.is_cuda:
-        torch.cuda.synchronize(out.positions.device)
-    t1 = time.perf_counter()
-    tracks = assemble_tracks(out, min_len=cfg.track.traj_min_len)
-    t2 = time.perf_counter()
-    tracks.save(traj_path)
-    log(f"[tracks] scan {t1 - t0:.1f}s, fetch+assemble {t2 - t1:.1f}s, "
-        f"save {time.perf_counter() - t2:.1f}s")
+        tcfg = TrackerConfig(
+            sample_ratio=cfg.track.sample_ratio,
+            capacity=cfg.track.capacity,
+            path_consistency=use_pc,
+        )
+        out = run_tracker(ff, occ, ff2, occ2, tcfg, height, width)
+    with profiling.span("tracks.assemble", device=ff.device):
+        tracks = assemble_tracks(out, min_len=cfg.track.traj_min_len)
+        tracks.save(traj_path)
     log(f"[tracks] {tracks.num_tracks} tracks over {tracks.num_frames} frames "
         f"(overflow={int(out.overflow)})")
     return tracks
@@ -402,27 +392,30 @@ def sfm_stage(
         log(f"[sfm] focal prior from flow self-calibration: {f_cal:.1f} "
             f"(heuristic {params[0]:.1f}, BA trust region +-{bound_frac:.0%})")
         params[0] = params[1] = f_cal
+    models = None
     if cfg.sfm.sfm_type == "incremental":
         # the reference's incremental mode runs one model (multiple_models=0)
         rec = run_incremental_mapper(tracks, height, width, cfg.sfm, params=params, log=log,
                                      device=device)
-        write_colmap_model(rec, model_dir, image_names)
     elif cfg.sfm.multiple_models:
         models = run_reconstruction_manager(
             tracks, height, width, cfg.sfm, max_models=cfg.sfm.max_models,
             params=params, log=log, focal_bound_frac=bound_frac, device=device)
-        rec = write_models(models, model_dir, image_names, log=log)
-        if rec is None:
-            rec = _failed(tracks.num_frames, cameras.make_default_params(height, width).numpy(),
-                          height, width)
-            write_colmap_model(rec, model_dir, image_names)
     else:
         rec = run_global_mapper(tracks, height, width, cfg.sfm, params=params, log=log,
                                 focal_bound_frac=bound_frac, device=device)
-        write_colmap_model(rec, model_dir, image_names)
-    write_converted_outputs(rec, Path(out_dir) / "colmap_outputs_converted", image_names)
-    stats = compute_model_stats(rec)
-    log(format_model_stats(stats))
-    with open(Path(out_dir) / "sfm" / "stats.txt", "w") as f:
-        f.write(format_model_stats(stats) + "\n")
+    with profiling.span("sfm.export", device=device):
+        if models is not None:
+            rec = write_models(models, model_dir, image_names, log=log)
+            if rec is None:
+                rec = _failed(tracks.num_frames,
+                              cameras.make_default_params(height, width).numpy(), height, width)
+                write_colmap_model(rec, model_dir, image_names)
+        else:
+            write_colmap_model(rec, model_dir, image_names)
+        write_converted_outputs(rec, Path(out_dir) / "colmap_outputs_converted", image_names)
+        stats = compute_model_stats(rec)
+        log(format_model_stats(stats))
+        with open(Path(out_dir) / "sfm" / "stats.txt", "w") as f:
+            f.write(format_model_stats(stats) + "\n")
     return rec

@@ -13,6 +13,12 @@ Host code sequences the stages and reshapes arrays; the solves run on
 `device`. Every random draw replays the reference's `jax.random` key for
 the same `cfg.seed` (globalsfm/twoview.py threefry), so both packages test
 the same RANSAC hypotheses on the same tracks.
+
+Traced (`utils.profiling`), each mapper start is the spans `sfm.pairs`,
+`sfm.twoview`, `sfm.rotations`, `sfm.positions` and `sfm.ba` in turn, each
+timed on `device` (scoring finished models between starts belongs to
+`sfm.ba`), and the counter `sfm.mapper_runs` counts the starts, retries
+included.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..graph import (extract_triplets, filter_pairs_by_orientation, largest_conn
                      loop_consistency_filter, mfas_position_filter,
                      orientations_from_spanning_tree)
 from ..tracks.store import TrackArrays
+from ..utils import profiling
 from ..utils.config import SfmConfig
 from .correspondences import (build_obs_device, build_observations, build_pair_tensors,
                               full_epipolar_votes, gather_triplet_points,
@@ -121,7 +128,9 @@ def run_global_mapper(
     cfg = cfg or SfmConfig()
     dev = resolve_device(device)
     rec = _mapper_with_retries(tracks, height, width, cfg, params, log, focal_bound_frac, dev)
-    e1 = _kept_err(rec)
+    # traced, scoring a finished model is part of `sfm.ba`
+    with profiling.span("sfm.ba", device=dev):
+        e1 = _kept_err(rec)
     if (cfg.multi_start_err_px > 0 and cfg.pre_orientation_filter_deg == 0
             and (rec.num_registered < 3 or e1 > cfg.multi_start_err_px)):
         log(f"[mapper] kept-obs mean reprojection {e1:.2f}px > "
@@ -130,11 +139,13 @@ def run_global_mapper(
         cfg2 = replace(cfg, pre_orientation_filter_deg=6.0)
         rec2 = _mapper_with_retries(tracks, height, width, cfg2, params, log,
                                     focal_bound_frac, dev)
-        s1 = _convergence_score(rec, height, width)
-        s2 = _convergence_score(rec2, height, width)
+        with profiling.span("sfm.ba", device=dev):
+            s1 = _convergence_score(rec, height, width)
+            s2 = _convergence_score(rec2, height, width)
+            e2 = _kept_err(rec2)
         log(f"[mapper] multi-start scores (obs/err^2 x coverage): "
             f"ungated {s1:.0f} vs gated {s2:.0f} "
-            f"(err {e1:.2f} vs {_kept_err(rec2):.2f}px)")
+            f"(err {e1:.2f} vs {e2:.2f}px)")
         if s2 > s1:
             rec = rec2
     return rec
@@ -196,19 +207,22 @@ def _mapper_with_retries(tracks, height, width, cfg, params, log, focal_bound_fr
             cfg_g = replace(cfg, sfm_type="glomap")
             if fe_cache:
                 # the front end is identical for both positioning paths
+                profiling.count("sfm.mapper_runs")
                 rec_g = _position_and_refine(tracks, height, width, cfg_g, fe_cache, log, dev)
             else:
                 rec_g = _run_global_mapper_once(tracks, height, width, cfg_g, params, log, dev,
                                                 focal_bound_frac=focal_bound_frac)
-            s1 = _model_score(rec, height, width)
-            s2 = _model_score(rec_g, height, width)
+            with profiling.span("sfm.ba", device=dev):
+                s1 = _model_score(rec, height, width)
+                s2 = _model_score(rec_g, height, width)
             log(f"[mapper] glomap-retry scores: lud {s1:.0f} vs glomap {s2:.0f}")
             if s2 > s1:
                 rec = rec_g
 
     # a dominant-object lock explains observations only inside the object's
     # compact image region; a broad-coverage model is the background
-    cov = _coverage_fraction(rec, height, width)
+    with profiling.span("sfm.ba", device=dev):
+        cov = _coverage_fraction(rec, height, width)
     if rec.support < 0.5 and cov < 0.55 and rec.num_registered >= 3:
         log(f"[mapper] low support ({rec.support:.2f}) with compact coverage "
             f"({cov:.2f}); trying the complement model")
@@ -217,8 +231,9 @@ def _mapper_with_retries(tracks, height, width, cfg, params, log, focal_bound_fr
         comp = TrackArrays(xy=tracks.xy, mask=comp_mask, labels=tracks.labels)
         rec2 = _run_global_mapper_once(comp, height, width, cfg, params, log, dev,
                                        focal_bound_frac=focal_bound_frac)
-        s1 = _model_score(rec, height, width)
-        s2 = _model_score(rec2, height, width)
+        with profiling.span("sfm.ba", device=dev):
+            s1 = _model_score(rec, height, width)
+            s2 = _model_score(rec2, height, width)
         log(f"[mapper] model scores (kept-obs x image coverage): "
             f"primary {s1:.0f} vs complement {s2:.0f}")
         if s2 > s1:
@@ -233,6 +248,23 @@ def _verified(num_inl, pmask, cfg):
 
 def _run_global_mapper_once(tracks, height, width, cfg, params, log, dev,
                             fe_out: Optional[dict] = None, focal_bound_frac=None):
+    """One mapper start: the front end (pairs, two-view geometry, rotations)
+    and `_position_and_refine`. Traced, the front end is the spans
+    `sfm.pairs`, `sfm.twoview` and `sfm.rotations`, back to back."""
+    profiling.count("sfm.mapper_runs")
+    with profiling.steps(device=dev) as step:
+        fe = _front_end(tracks, height, width, cfg, params, log, dev, step, focal_bound_frac)
+    if isinstance(fe, Reconstruction):
+        return fe
+    if fe_out is not None:
+        fe_out.update(fe)
+    return _position_and_refine(tracks, height, width, cfg, fe, log, dev)
+
+
+def _front_end(tracks, height, width, cfg, params, log, dev, step, focal_bound_frac):
+    """The front-end products `_position_and_refine` reads, or a failed
+    Reconstruction. `step(name)` starts each of its spans."""
+    step("sfm.pairs")
     default_prior = params is None
     if params is None:
         params = cameras.make_default_params(height, width).numpy()
@@ -269,6 +301,8 @@ def _run_global_mapper_once(tracks, height, width, cfg, params, log, dev,
     dev_tracks = upload_tracks_u16(tracks.xy, tracks.mask, dev)
 
     # ---- two-view geometry (batched RANSAC) ------------------------------
+    step("sfm.twoview")
+
     def norm(uv):
         return (uv - params[None, None, 2:4]) / focal
 
@@ -441,6 +475,7 @@ def _run_global_mapper_once(tracks, height, width, cfg, params, log, dev,
         return _failed(num_images, params, height, width)
 
     # ---- pre-averaging loop-consistency gate (multi-start's second start)
+    step("sfm.rotations")
     if cfg.pre_orientation_filter_deg > 0:
         keep = loop_consistency_filter(V, spairs, R_rel, max_err_deg=cfg.pre_orientation_filter_deg)
         if (not keep.all() and keep.sum() >= max(3, int(0.3 * len(spairs)))
@@ -533,25 +568,36 @@ def _run_global_mapper_once(tracks, height, width, cfg, params, log, dev,
     # the solver reads the fixed-point track upload, as the reference's does
     obs = build_obs_device(dev_tracks, obs_t.track_row, orig_fi, obs_t.frame_idx, obs_t.mask)
 
-    fe = dict(params=params, focal=focal, focal_bounds=focal_bounds, obs=obs, obs_t=obs_t,
-              N=N, V=V, sub=sub, full2sub=full2sub, anchor=anchor, R_abs=R_abs,
-              spairs=spairs, counts=counts, R_rel=R_rel, t_rel=t_rel, inl_mask=inl_mask,
-              uv1=uv1, uv2=uv2, has_b=has_b, static_mask=static_mask, num_images=num_images)
-    if fe_out is not None:
-        fe_out.update(fe)
-    return _position_and_refine(tracks, height, width, cfg, fe, log, dev)
+    return dict(params=params, focal=focal, focal_bounds=focal_bounds, obs=obs, obs_t=obs_t,
+                N=N, V=V, sub=sub, full2sub=full2sub, anchor=anchor, R_abs=R_abs,
+                spairs=spairs, counts=counts, R_rel=R_rel, t_rel=t_rel, inl_mask=inl_mask,
+                uv1=uv1, uv2=uv2, has_b=has_b, static_mask=static_mask, num_images=num_images)
 
 
 def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reconstruction:
     """Positioning back-end (glomap bearings, or LUD or linear positions with
     the optional nonlinear refinement) + shared refinement, from the
-    front-end products in `fe`."""
-    params, focal, focal_bounds = fe["params"], fe["focal"], fe["focal_bounds"]
+    front-end products in `fe`; traced, the spans `sfm.positions` and
+    `sfm.ba`."""
+    with profiling.span("sfm.positions", device=dev):
+        pos = _positions(tracks, height, width, cfg, fe, log, dev)
+    if isinstance(pos, Reconstruction):
+        return pos
+    params, q_est, t_est = pos
+    with profiling.span("sfm.ba", device=dev):
+        return _refine_and_finish(tracks, cfg, params, height, width, fe["num_images"],
+                                  fe["sub"], fe["full2sub"], fe["obs"], fe["obs_t"], q_est,
+                                  t_est, fe["V"], fe["N"], log, dev, anchor=fe["anchor"],
+                                  focal_bounds=fe["focal_bounds"])
+
+
+def _positions(tracks, height, width, cfg, fe: dict, log, dev):
+    """Camera positions: (params, q_est, t_est) for `_refine_and_finish`, or
+    a failed Reconstruction."""
+    params, focal = fe["params"], fe["focal"]
     obs, obs_t = fe["obs"], fe["obs_t"]
-    N, V = fe["N"], fe["V"]
-    sub, full2sub = fe["sub"], fe["full2sub"]
-    anchor, R_abs = fe["anchor"], fe["R_abs"]
-    spairs, R_rel, t_rel = fe["spairs"], fe["R_rel"], fe["t_rel"]
+    N, V, sub, R_abs = fe["N"], fe["V"], fe["sub"], fe["R_abs"]
+    spairs, t_rel = fe["spairs"], fe["t_rel"]
     inl_mask, uv1, uv2, has_b = fe["inl_mask"], fe["uv1"], fe["uv2"], fe["has_b"]
     static_mask, num_images = fe["static_mask"], fe["num_images"]
 
@@ -585,9 +631,7 @@ def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reco
             f"(prior {focal:.1f}), median reproj {med_err:.1f}px, "
             f"{frac_valid:.2f} tracks valid")
         if med_err < 8.0 * cfg.ba.filter_max_reproj_error_px and frac_valid > 0.5:
-            return _refine_and_finish(tracks, cfg, params_g, height, width, num_images, sub,
-                                      full2sub, obs, obs_t, q_est, t_est, V, N, log, dev,
-                                      anchor=anchor, focal_bounds=focal_bounds)
+            return params_g, q_est, t_est
         log("[mapper] glomap positioning rejected; falling back to LUD path")
 
     # ---- pairwise translation refinement (panoramic pairs carry no baseline)
@@ -669,9 +713,7 @@ def _position_and_refine(tracks, height, width, cfg, fe: dict, log, dev) -> Reco
         log("[mapper] nonlinear position refinement done")
     q_est = rot.rotmat_to_quat(R_abs)
     t_est = se3.pose_from_center(q_est, p_est)  # register: t = -R p
-    return _refine_and_finish(tracks, cfg, params, height, width, num_images, sub, full2sub,
-                              obs, obs_t, q_est, t_est, V, N, log, dev, anchor=anchor,
-                              focal_bounds=focal_bounds)
+    return params, q_est, t_est
 
 
 def _spread(q, t) -> float:

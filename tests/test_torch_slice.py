@@ -138,7 +138,7 @@ def test_port_picks_up_reference_flow_dirs(runs, tmp_path):
     msgs = []
     tracks = run.run_pipeline(images, tmp_path, cfg, log=msgs.append, device="cpu")
     assert sum("reusing" in m for m in msgs) == len(FLOWS)
-    assert not any("net+refine" in m for m in msgs)
+    assert not any(m.startswith("[flow]") and "computed" in m for m in msgs)
     nb = np.load(out["jax"] / "trajectories" / "tracks.npz")["xy"].shape[0]
     assert abs(tracks.num_tracks - nb) <= 0.01 * nb
 
