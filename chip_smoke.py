@@ -9,16 +9,21 @@ against its plain version, drives the port's main path and checks its output.
 
 Phases (each prints its lines; any failure exits non-zero):
   1. device  — CUDA required; card name and power limit from nvidia-smi.
-  2. build   — nvcc builds csrc/corr_lookup.cu (sm_90a); the r=4, 4-level
-               kernel's `-Xptxas -v` registers and spills (a spill fails
-               the run).
+  2. build   — nvcc builds csrc/corr_lookup.cu and csrc/track_lm.cu
+               (sm_90a); the r=4, 4-level K1's and K2's `-Xptxas -v`
+               registers and spills (a spill fails the run).
   3. kernel  — K1 vs the plain lookup at the main path's block shape
                (8 pairs, 55x128 level 0, 4 levels, r=4) on synthetic
                coordinates: max error, exact zeros off the map, times
                (kernel, plain, F.grid_sample) and the bound.
+               [track_lm] K2, the tracker's refinement step, vs its plain
+               torch ops on one 1024x436 frame state of 131,072 slots:
+               slots moved by more than 1e-4 px (at most 1e-4 of the
+               eligible), times (kernel, plain) and the byte and FLOP bound.
   4. slice   — renders the acceptance set's seq_03_dyn (seed 0, 1024x436,
                48 frames) and runs the user's default `run_pipeline` (global
-               SfM included) on the card: K1 launch count, finite flows,
+               SfM included) on the card: K1 launch count, K2 launch count
+               (one a flow from the second: 46), finite flows,
                stride-1 EPE against the renderer's ground truth, tracks; then
                [selfcal]   selfcal.json interior and within 6% of the
                            renderer's focal; the card's estimate from the
@@ -99,7 +104,8 @@ The last two lines are the card's `name, power.limit` and
 `[kernel-half]` and the half-scale flow stage's launches, the `*_val` keys
 those of `[kernel-val]`, `launches_train` the flow trainer's,
 `launches_sweep` the sweep's and `launches_mesh` the flow apply's on
-[mesh]'s logical mesh, over all its shards).
+[mesh]'s logical mesh, over all its shards; K2's `launches` is [slice]'s
+run_pipeline's).
 """
 from __future__ import annotations
 
@@ -354,6 +360,97 @@ def phase_kernel(dev, B=8, H8=55, W8=128):
                              coords).contiguous()
         runs.append(measure_lookup("kernel" if vec else "kernel-4B", pyr, coords, r, vec))
     return runs[0]
+
+
+# K2's work per eligible slot, counted from csrc/track_lm.cu (+ - * / sqrt,
+# a fused multiply-add as two; clamps and floors not counted): the three
+# anchor samples and the damping gate (75), one model evaluation (83: the
+# flow sample with its Jacobian, residuals, cost, g and J^T J), and per LM
+# step a 4x4 Cholesky solve with the step and the damping (70) and an
+# evaluation.
+TRACK_LM_FLOPS = (75, 83, 70)
+
+
+def track_lm_bound(H: int, W: int, C: int, eligible: int, num_iters: int) -> tuple:
+    """(bytes, FLOPs) one K2 launch must move and compute: the four maps
+    read once (eligible heads every ~2 px touch all of them), survive and
+    start_time of every slot, the three positions of each eligible slot read
+    and two written."""
+    nbytes = H * W * (3 * 8 + 4) + C * (1 + 4) + eligible * (3 * 8 + 2 * 8)
+    a, e, step = TRACK_LM_FLOPS
+    return nbytes, eligible * (a + e + num_iters * (step + e))
+
+
+def phase_track_lm(dev, C=131_072, H=436, W=1024, f=5, num_iters=12):
+    """K2 vs the plain refinement step (`tracks/optimize.py` track_lm_plain)
+    on one frame state at the main path's shapes: smooth random flows, 90%
+    of the slots eligible, heads over the whole image."""
+    import torch
+    import torch.nn.functional as F
+
+    from particlesfm_tpu_torch.tracks import optimize as lm
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def smooth(amp):
+        coarse = amp * torch.randn(1, 2, H // 32 + 2, W // 32 + 2, generator=g, device=dev)
+        fl = F.interpolate(coarse, size=(H, W), mode="bicubic", align_corners=True)[0]
+        return (fl.permute(1, 2, 0) + 0.3 * torch.randn(H, W, 2, generator=g, device=dev)
+                ).contiguous()
+
+    maps = (smooth(4), smooth(4), smooth(8),
+            (torch.rand(H, W, generator=g, device=dev) < 0.1).float())
+    size = torch.tensor([W - 1.0, H - 1.0], device=dev)
+    prev1 = size * torch.rand(C, 2, generator=g, device=dev)
+    prev2 = prev1 + torch.randn(C, 2, generator=g, device=dev)
+    new_pos = prev1 + torch.randn(C, 2, generator=g, device=dev)
+    survive = torch.rand(C, generator=g, device=dev) < 0.9
+    start_time = torch.zeros(C, dtype=torch.int32, device=dev)
+    eligible = int(survive.sum())
+
+    out = []
+    for fn in (lm.track_lm_cuda, lm.track_lm_plain):
+        p1, p2 = prev1.clone(), new_pos.clone()
+        fn(*maps, prev2, p1, p2, survive, start_time, f, 20.0, num_iters, True)
+        out.append(torch.cat([p1, p2], -1))
+    gap = (out[0] - out[1]).view(C, 2, 2).norm(dim=-1).amax(-1)[survive]
+    bad = int((gap > 1e-4).sum())
+    exact = float((out[0] == out[1])[survive].all(-1).float().mean())
+    if bad > 1e-4 * eligible:
+        fail(f"track_lm: {bad} of {eligible} eligible slots differ by more than 1e-4 px")
+
+    def timed(fn):
+        p1, p2 = prev1.clone(), new_pos.clone()
+        return time_ms(lambda: fn(*maps, prev2, p1, p2, survive, start_time, f, 20.0,
+                                  num_iters, True))
+
+    ms = timed(lm.track_lm_cuda)
+    host = []
+    p1, p2 = prev1.clone(), new_pos.clone()
+    for _ in range(5):             # host time of one call, median of 5 x 20 calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            lm.track_lm_cuda(*maps, prev2, p1, p2, survive, start_time, f, 20.0, num_iters,
+                             True)
+        host.append((time.perf_counter() - t0) / 20 * 1e3)
+    torch.cuda.synchronize()
+    plain_ms = timed(lm.track_lm_plain)
+    nbytes, flops = track_lm_bound(H, W, C, eligible, num_iters)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / FP32_FLOPS * 1e3
+    res = dict(ms=ms, host_ms=float(np.median(host)), plain_ms=plain_ms,
+               bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+               bytes=nbytes, flops=flops, max_gap_px=float(gap.max()), slots_over_1e4=bad,
+               bit_equal=exact)
+    log(f"[track_lm] C={C} {W}x{H} iters={num_iters} patch: {eligible} eligible, {bad} "
+        f"moved > 1e-4 px from plain (largest {res['max_gap_px']:.3e} px, bit-equal "
+        f"{100 * exact:.4f}%); K2 {ms:.4f} ms (host {res['host_ms']:.4f} ms/call), plain "
+        f"{plain_ms:.4f} ms; bound {res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB -> "
+        f"{bound_bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {bound_ops_ms:.4f} ms; "
+        f"{res['bound_by']}) -> {100 * res['bound_ms'] / ms:.1f}% of bound")
+    return res
 
 
 def profile_pipeline(dev, img_dir: Path, cfg) -> None:
@@ -846,6 +943,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
     from particlesfm_tpu_torch.ops import corr_lookup as cl
     from particlesfm_tpu_torch.pipeline import run as R
     from particlesfm_tpu_torch.pipeline import stages
+    from particlesfm_tpu_torch.tracks import optimize as lm
 
     img_dir = WORK / "images"
     out_dir = WORK / "out"
@@ -882,10 +980,11 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         cl.reset_launches()
+        lm.reset_launches()
         t0 = time.perf_counter()
         R.run_pipeline(img_dir, out_dir, cfg, log=msgs.append, device=dev)
         wall = time.perf_counter() - t0
-        launches, vec_launches = cl.launches, cl.vec_launches
+        launches, vec_launches, lm_launches = cl.launches, cl.vec_launches, lm.launches
     finally:
         for n in names:
             setattr(stages, n, originals[n])
@@ -900,6 +999,9 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
              f"{cfg.flow.iters} iterations")
     if vec_launches != launches:
         fail(f"slice: {launches - vec_launches} of {launches} K1 launches took 4-byte copies")
+    if lm_launches != frames - 2:
+        fail(f"slice: K2 launched {lm_launches} times, expected one a flow from the second "
+             f"({frames - 2})")
     for name in ("flow_f", "flow_b", "flow_f2", "flow_b2"):
         if not bool(torch.isfinite(flows[name]).all()):
             fail(f"slice: non-finite values in {name}")
@@ -918,7 +1020,7 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
             fail(f"slice: no '{stage}' stage in timings.txt")
     log(f"[slice] run_pipeline {wall:.2f}s: stages {json.dumps(stage_s)}; "
         f"{n_pairs} pairs in {blocks} blocks; K1 launches {launches} ({vec_launches} with "
-        f"16-byte copies); "
+        f"16-byte copies); K2 launches {lm_launches}; "
         f"stride-1 EPE median {epe_median:.4f} px, per-pair mean "
         f"{np.round(epe_mean_pairs, 4).tolist()}; {n_long} tracks of length >= 3 "
         f"over {tracks.num_frames} frames; peak allocated {peak_gb:.2f} GB (each stage's "
@@ -932,9 +1034,9 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
                           stage_s["sfm"], stage_gb["sfm_stage"], dump_on))
     if profile_run:
         profile_pipeline(dev, img_dir, cfg)
-    return dict(launches=launches, img_dir=img_dir, dump=dump, gt=gt, out_dir=out_dir,
-                last_ba=solvers.last["bundle_adjust"], cfg=cfg, flows=flows, tracks=tracks,
-                depths=kept["depth_stage"])
+    return dict(launches=launches, lm_launches=lm_launches, img_dir=img_dir, dump=dump,
+                gt=gt, out_dir=out_dir, last_ba=solvers.last["bundle_adjust"], cfg=cfg,
+                flows=flows, tracks=tracks, depths=kept["depth_stage"])
 
 
 MESH_SHARDS = 4               # [mesh]'s logical mesh on one card: [cuda:0] * 4
@@ -2235,24 +2337,27 @@ def main(argv=None) -> int:
         return 1
     import particlesfm_tpu_torch  # noqa: F401  (sets the TF32 policy)
     from particlesfm_tpu_torch.ops import corr_lookup as cl
+    from particlesfm_tpu_torch.tracks import optimize as lm
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    so = cl.load_library()
-    log(f"[build] corr_lookup.cu -> {Path(so._name).name} in "
-        f"{time.perf_counter() - t0:.2f}s")
-    ptxas = Path(so._name).with_suffix(".log")
-    if ptxas.exists():
-        for ln in ptxas_lines(ptxas.read_text(), "corr_lookup_kernelILi4ELi4E"):
-            log(f"[build] {ln}")
-            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
-                fail("build: the r=4, 4-level kernel spills registers")
+    for mod, entry in ((cl, "corr_lookup_kernelILi4ELi4E"), (lm, "track_lm_kernel")):
+        t0 = time.perf_counter()
+        so = mod.load_library()
+        log(f"[build] {mod.SOURCE.name} -> {Path(so._name).name} in "
+            f"{time.perf_counter() - t0:.2f}s")
+        ptxas = Path(so._name).with_suffix(".log")
+        if ptxas.exists():
+            for ln in ptxas_lines(ptxas.read_text(), entry):
+                log(f"[build] {ln}")
+                if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                    fail(f"build: {entry} spills registers")
 
     k = phase_kernel(dev)
+    k2 = phase_track_lm(dev)
     if WORK.exists():
         shutil.rmtree(WORK)
     try:
@@ -2294,7 +2399,10 @@ def main(argv=None) -> int:
         library_ms_val=tr["flow"]["kernel"]["library_ms"],
         bound_ms_val=tr["flow"]["kernel"]["bound_ms"],
         max_abs_err_val=tr["flow"]["kernel"]["max_abs_err"], launches_sweep=sw["launches"],
-        launches_mesh=me["launches"])]
+        launches_mesh=me["launches"]),
+        dict(name="track_lm", route="cuda", source="particlesfm_tpu_torch/csrc/track_lm.cu",
+             replaces="none (step 4 of particlesfm_tpu/tracks/engine.py, left to XLA)",
+             launches=s["lm_launches"], **k2)]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

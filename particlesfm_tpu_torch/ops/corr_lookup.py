@@ -4,8 +4,9 @@ Port of the Pallas TPU kernel particlesfm_tpu/ops/corr_lookup.py
 (`lookup_corr_pyramid_pallas`), computing the gather form
 particlesfm_tpu/models/raft.py:101 (`lookup_corr_gather`) batched over pairs.
 The kernel source is `csrc/corr_lookup.cu`; it is compiled with nvcc for
-sm_90a into `_build/` the first time a CUDA tensor reaches `lookup_corr`, and
-bound with ctypes (plain C interface: no torch headers, a build of seconds).
+sm_90a into `_build/` the first time a CUDA tensor reaches `lookup_corr`
+(`ops/nvcc.py`), and bound with ctypes (plain C interface: no torch headers,
+a build of seconds).
 
 Dispatch: tensors on the CPU take the plain version (`lookup_corr_plain`);
 tensors on CUDA always launch the kernel — a failed build or launch raises,
@@ -18,24 +19,17 @@ bound.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "corr_lookup.cu"
-BUILD_DIR = _PKG / "_build"
+from . import nvcc
+
+SOURCE = nvcc.CSRC / "corr_lookup.cu"
 MAX_LEVELS = 4
 RADII = (1, 2, 3, 4)    # the radii the kernel is compiled for
 
 launches = 0            # kernel launches since import (or the last reset)
 vec_launches = 0        # those of them that copied windows in 16-byte chunks
-_lib = None             # the loaded library
-_lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -105,45 +99,13 @@ def lookup_bytes(shapes, coords: torch.Tensor, radius: int = 4) -> int:
     return 4 * (n_out + B * P * 2 + window_elems)
 
 
-def _build_library() -> Path:
-    """Compile csrc/corr_lookup.cu for sm_90a; the file name carries a hash
-    of the source, so an edited source is rebuilt."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"corr_lookup_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    if CUDA_HOME is None:
-        raise RuntimeError("corr_lookup: no CUDA toolkit found to build the kernel")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"),
-           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"corr_lookup: nvcc failed:\n{res.stdout}\n{res.stderr}")
-    (BUILD_DIR / (so.stem + ".log")).write_text(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
-
-
 def load_library():
     """Build (first use) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build_library()))
-            fn = lib.corr_lookup_launch
-            fn.argtypes = ([ctypes.c_void_p] * MAX_LEVELS + [ctypes.c_int] * (2 * MAX_LEVELS)
-                           + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                              ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return nvcc.load(SOURCE, "corr_lookup_launch",
+                     [ctypes.c_void_p] * MAX_LEVELS + [ctypes.c_int] * (2 * MAX_LEVELS)
+                     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int)])
 
 
 def lookup_corr_cuda(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:

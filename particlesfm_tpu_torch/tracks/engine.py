@@ -10,7 +10,8 @@ tensors. Per frame f (upstream's track_optimize.py:31-50):
   3. occupancy of the surviving new positions -> next frame's free cells
      (no occupied pixel within Euclidean distance sample_ratio);
   4. trajectories with >= 3 buffered positions jointly refine their
-     positions at (f, f+1) against the flow01/flow02 anchors and flow12.
+     positions at (f, f+1) against the flow01/flow02 anchors and flow12
+     (`optimize.track_lm`: kernel K2 on the card, one launch a frame).
 
 The reference's `.at[].set(mode="drop")` scatters address a sentinel index
 (C, W or H) for entries they drop; here those entries are masked out before
@@ -25,7 +26,7 @@ import torch
 
 from ..ops.density import free_cell_mask
 from ..ops.sampling import bilinear_sample
-from .optimize import optimize_locations
+from .optimize import track_lm
 
 
 @dataclass(frozen=True)
@@ -144,24 +145,12 @@ def run_tracker(
         new_pos = torch.where(s2, nxt, pos)
 
         # --- 4. path-consistency refinement of times (f, f+1) ----------------
-        if use_pc:
-            eligible = survive & (start_time <= f - 1)
-            fprev = max(f - 1, 0)
-            x0 = prev2
-            f01 = bilinear_sample(flows[fprev], x0)
-            f02 = bilinear_sample(flows2[fprev], x0)
-            o02 = bilinear_sample(occs2[fprev][..., None], x0)[..., 0]
-            uv_ref1 = x0 + f01
-            uv_ref2 = x0 + f02
-            f02_norm = torch.sqrt((f02 * f02).sum(-1))
-            scale = (1.0 - o02) * (f02_norm < cfg.upper_flow).to(o02.dtype)
-            p = torch.cat([prev1, new_pos], dim=-1)
-            p_opt = optimize_locations(
-                p, uv_ref1, uv_ref2, scale, flow_map,
-                mask=eligible.to(p.dtype), num_iters=cfg.gn_iters, patch=cfg.patch_lm)
-            e2 = eligible[:, None]
-            prev1 = torch.where(e2, p_opt[:, 0:2], prev1)
-            new_pos = torch.where(e2, p_opt[:, 2:4], new_pos)
+        # survivors born by f-1 refine prev1 and new_pos in place (K2 on the
+        # card); at f == 0 no slot is (start_time >= 0), so the step is skipped
+        if use_pc and f > 0:
+            track_lm(flow_map, flows[f - 1], flows2[f - 1], occs2[f - 1], prev2, prev1,
+                     new_pos, survive, start_time, f, upper_flow=cfg.upper_flow,
+                     num_iters=cfg.gn_iters, patch=cfg.patch_lm)
 
         # --- emit final positions at time f -----------------------------------
         # survivors: refined prev1 (time f); dying slots: their unstepped head

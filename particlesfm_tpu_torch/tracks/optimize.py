@@ -11,12 +11,34 @@ ParticleSfM's Ceres cost, point_trajectory/optimize/src/path_consistency_cost.h)
 The problem is block-diagonal across trajectories: every solve is a
 closed-form 4x4 Cholesky over the whole batch, in elementwise tensor ops.
 flow12 is sampled with edge-clamped bilinear interpolation (Ceres Grid2D).
+
+`track_lm` is the tracker's whole refinement step for one frame (its anchor
+samples, the LM and the write-back). CPU tensors take the plain version
+(`track_lm_plain`: these torch ops, the oracle); CUDA tensors always launch
+kernel K2 (`csrc/track_lm.cu`, built by `ops/nvcc.py` on first use and bound
+with ctypes): a failed build, launch or argument check raises, there is no
+fallback. `launches` counts K2's launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..ops import nvcc
+from ..ops.sampling import bilinear_sample
+from ..utils import profiling
+
 _PATCH = 6  # local flow window per trajectory: +-2 px of refinement travel
+SOURCE = nvcc.CSRC / "track_lm.cu"
+NVCC_FLAGS = ("-fmad=false",)   # one rounding per op, as the torch ops round
+
+launches = 0            # K2 launches since import (or the last reset)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
 
 
 def _sample_flow_and_jac(flow_map: torch.Tensor, xy: torch.Tensor):
@@ -197,3 +219,101 @@ def optimize_locations(uv12, uv_ref1, uv_ref2, ref2_scale, flow12_map, mask=None
         Hs = torch.where(better[..., None, None], H_c, Hs)
         lam = torch.clamp(torch.where(better, lam * 0.3, lam * 4.0), 1e-8, 1e6)
     return torch.where(mask[..., None] > 0, p_best, uv12)
+
+
+def track_lm_plain(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive,
+                   start_time, f: int, upper_flow: float, num_iters: int,
+                   patch: bool) -> None:
+    """Step 4 of the tracker's frame f in torch ops: the slots with
+    `survive & (start_time <= f - 1)` refine their positions at f and f+1
+    (prev1, new_pos [C, 2], updated in place) against the anchors at their
+    position at f-1 (prev2): flow01 = flows[f-1], flow02 = flows2[f-1] and
+    occ02 = occs2[f-1] sampled there; flow12 = flows[f] between them."""
+    eligible = survive & (start_time <= f - 1)
+    x0 = prev2
+    f01 = bilinear_sample(flow01, x0)
+    f02 = bilinear_sample(flow02, x0)
+    o02 = bilinear_sample(occ02[..., None], x0)[..., 0]
+    uv_ref1 = x0 + f01
+    uv_ref2 = x0 + f02
+    f02_norm = torch.sqrt((f02 * f02).sum(-1))
+    scale = (1.0 - o02) * (f02_norm < upper_flow).to(o02.dtype)
+    p = torch.cat([prev1, new_pos], dim=-1)
+    p_opt = optimize_locations(
+        p, uv_ref1, uv_ref2, scale, flow12,
+        mask=eligible.to(p.dtype), num_iters=num_iters, patch=patch)
+    e2 = eligible[:, None]
+    prev1.copy_(torch.where(e2, p_opt[:, 0:2], prev1))
+    new_pos.copy_(torch.where(e2, p_opt[:, 2:4], new_pos))
+
+
+def _check(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive, start_time,
+           num_iters: int, patch: bool) -> None:
+    """What K2 takes: contiguous float32 maps [H, W, 2] (occ02 [H, W]) and
+    slots [C, 2], survive bool [C], start_time int32 [C], all on one CUDA
+    device; maps and slots 8-byte aligned; num_iters >= 0; H, W >= 6 with
+    `patch` (the window lies inside the image), >= 2 without."""
+    maps = (flow12, flow01, flow02)
+    slots = (prev2, prev1, new_pos)
+    H, W = flow12.shape[:2]
+    C = prev2.shape[0]
+    want = [(t, (H, W, 2), torch.float32) for t in maps] + [(occ02, (H, W), torch.float32)]
+    want += [(t, (C, 2), torch.float32) for t in slots]
+    want += [(survive, (C,), torch.bool), (start_time, (C,), torch.int32)]
+    for t, shape, dtype in want:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"track_lm: expected {dtype} {list(shape)}, got {t.dtype} "
+                             f"{list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("track_lm: inputs must be contiguous")
+    if any(t.data_ptr() % 8 for t in maps + slots):
+        raise ValueError("track_lm: maps and slots must be 8-byte aligned")
+    if num_iters < 0 or min(H, W) < (_PATCH if patch else 2):
+        raise ValueError(f"track_lm: num_iters {num_iters}, map {H}x{W} (patch={patch})")
+    dev = flow12.device
+    if dev.type != "cuda" or any(t.device != dev for t, _, _ in want):
+        raise ValueError("track_lm: inputs must lie on one CUDA device")
+
+
+def load_library():
+    """Build (first use) and load K2's library."""
+    return nvcc.load(SOURCE, "track_lm_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p], NVCC_FLAGS)
+
+
+def track_lm_cuda(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive,
+                  start_time, f: int, upper_flow: float, num_iters: int,
+                  patch: bool) -> None:
+    """Launch K2 on CUDA tensors (same contract as track_lm_plain), on the
+    current stream: no synchronisation, no allocation."""
+    global launches
+    _check(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive, start_time,
+           num_iters, patch)
+    H, W = flow12.shape[:2]
+    fn = load_library().track_lm_launch
+    with torch.cuda.device(flow12.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(flow12.data_ptr(), flow01.data_ptr(), flow02.data_ptr(), occ02.data_ptr(),
+                H, W, prev2.data_ptr(), prev1.data_ptr(), new_pos.data_ptr(),
+                survive.data_ptr(), start_time.data_ptr(), prev2.shape[0], f, upper_flow,
+                num_iters, int(patch), stream)
+    if rc != 0:
+        raise RuntimeError(f"track_lm: kernel launch failed (cudaError {rc})")
+    launches += 1
+    profiling.count("tracks.lm_kernel")
+
+
+def track_lm(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive, start_time,
+             f: int, upper_flow: float, num_iters: int, patch: bool) -> None:
+    """The tracker's refinement step of frame f (track_lm_plain's contract):
+    CPU tensors take the plain version, CUDA tensors K2."""
+    if prev1.device.type == "cpu":
+        fn = track_lm_plain
+    elif prev1.device.type == "cuda":
+        fn = track_lm_cuda
+    else:
+        raise ValueError(f"track_lm: unsupported device {prev1.device}")
+    fn(flow12, flow01, flow02, occ02, prev2, prev1, new_pos, survive, start_time, f,
+       upper_flow, num_iters, patch)

@@ -1,6 +1,8 @@
 """CUDA tests of the port: each kernel against its plain version, and the
 torch-op stages (self-calibration, depth, motion seg) and one step of each
-trainer on the card against the same code on the CPU.
+trainer on the card against the same code on the CPU. The tracker's kernel
+K2 is held against its plain torch version on the card, on random blocks and
+frame by frame along rendered scenes of both benchmark configurations.
 
 Marked `cuda`; they skip without a CUDA device. This file imports torch and
 the port only (no JAX), so it runs on a GPU machine without the reference:
@@ -13,6 +15,9 @@ import torch
 
 from particlesfm_tpu_torch.models.raft import build_corr_pyramid
 from particlesfm_tpu_torch.ops import corr_lookup as cl
+from particlesfm_tpu_torch.ops.sampling import bilinear_sample
+from particlesfm_tpu_torch.tracks import engine
+from particlesfm_tpu_torch.tracks import optimize as lm
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +146,153 @@ def test_corr_lookup_rejects_unsupported_radius(cuda, radius):
     with pytest.raises(ValueError):
         cl.lookup_corr(pyr, torch.zeros(1, 4, 2, device=cuda), radius)
     assert cl.launches == before
+
+
+def _k2_vs_plain(args, f, num_iters, patch, upper_flow=20.0):
+    """K2 and the plain version on copies of the same frame state: (the
+    eligible mask, K2's and the plain version's refined [C, 4] positions).
+    K2 launches once and leaves every slot that is not eligible as it was."""
+    maps, (prev2, prev1, new_pos, survive, start_time) = args[:4], args[4:]
+    out = []
+    for fn in (lm.track_lm, lm.track_lm_plain):
+        p1, p2 = prev1.clone(), new_pos.clone()
+        before = lm.launches
+        fn(*maps, prev2, p1, p2, survive, start_time, f, upper_flow=upper_flow,
+           num_iters=num_iters, patch=patch)
+        assert lm.launches == before + (fn is lm.track_lm)
+        out.append(torch.cat([p1, p2], -1))
+    eligible = survive & (start_time <= f - 1)
+    same = torch.cat([prev1, new_pos], -1)[~eligible]
+    assert torch.equal(out[0][~eligible], same)
+    return eligible, out[0], out[1]
+
+
+def _gap_stats(eligible, got, want):
+    """(eligible slots, those whose position moved by more than 1e-4 px,
+    the largest gap in px, the share equal to the last bit)."""
+    gap = (got - want)[eligible].view(-1, 2, 2).norm(dim=-1).amax(-1)
+    exact = (got == want)[eligible].all(-1)
+    n = int(eligible.sum())
+    return n, int((gap > 1e-4).sum()), float(gap.max()) if n else 0.0, \
+        float(exact.float().mean()) if n else 1.0
+
+
+def _lm_block(dev, C=40_000, H=436, W=1024, f=5, seed=0):
+    """A random frame state: smooth flows with noise, stride-2 flows large
+    enough that |flow02| >= 20 gates a third of the anchors off, occlusion
+    in 8x8 tiles (anchors inside read o02 = 1: scale 0), 40% of the heads
+    within 4 px of one of the four borders (their windows clip), and slots
+    that are dead or born too late (masked)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    def smooth(amp):
+        coarse = amp * torch.randn(1, 2, H // 32 + 2, W // 32 + 2, generator=g, device=dev)
+        fl = F.interpolate(coarse, size=(H, W), mode="bicubic", align_corners=True)[0]
+        return (fl.permute(1, 2, 0) + 0.3 * torch.randn(H, W, 2, generator=g, device=dev)
+                ).contiguous()
+
+    tiles = (rand(H // 8 + 1, W // 8 + 1) < 0.2).float()
+    occ02 = tiles.repeat_interleave(8, 0).repeat_interleave(8, 1)[:H, :W].contiguous()
+    size = torch.tensor([W, H], device=dev, dtype=torch.float32)
+    prev1 = (-2 + (size + 3) * rand(C, 2))
+    near = rand(C) < 0.4
+    axis = (rand(C) < 0.5).long()
+    edge = torch.where(rand(C) < 0.5, -2 + 6 * rand(C), size[axis] - 5 + 6 * rand(C))
+    prev1[near, axis[near]] = edge[near]
+    prev2 = prev1 + 2 * torch.randn(C, 2, generator=g, device=dev)
+    new_pos = prev1 + 2 * torch.randn(C, 2, generator=g, device=dev)
+    survive = rand(C) < 0.85
+    start_time = torch.randint(0, f + 1, (C,), generator=g, device=dev, dtype=torch.int32)
+    return (smooth(4), smooth(4), smooth(14), occ02, prev2.contiguous(), prev1.contiguous(),
+            new_pos.contiguous(), survive, start_time)
+
+
+@pytest.mark.parametrize("num_iters", [0, 1, 12])
+@pytest.mark.parametrize("patch", [True, False])
+def test_track_lm_kernel_matches_plain(cuda, patch, num_iters):
+    """K2 against the plain torch ops on the card, on a random block: at
+    most 1e-4 of the eligible slots move by more than 1e-4 px."""
+    f = 5
+    args = _lm_block(cuda, f=f)
+    eligible, got, want = _k2_vs_plain(args, f, num_iters, patch)
+    # the block holds every kind of row
+    x0, f02, occ02, prev1 = args[4], args[2], args[3], args[5]
+    o02 = bilinear_sample(occ02[..., None], x0)[..., 0]
+    gated = bilinear_sample(f02, x0).norm(dim=-1) >= 20.0
+    W, H = occ02.shape[1], occ02.shape[0]
+    border = ((prev1[:, 0] < 3) | (prev1[:, 0] > W - 4) | (prev1[:, 1] < 3)
+              | (prev1[:, 1] > H - 4))
+    for kind in (eligible & (o02 == 1), eligible & gated, ~eligible, eligible & border):
+        assert int(kind.sum()) > 500
+    n, bad, worst, exact = _gap_stats(eligible, got, want)
+    print(f"[track_lm] patch={patch} iters={num_iters}: {n} eligible, {bad} > 1e-4 px, "
+          f"largest gap {worst:.3e} px, bit-equal {100 * exact:.4f}%")
+    assert bad <= 1e-4 * n
+    if num_iters == 0:
+        assert torch.equal(got, want)
+
+
+def _recipe_flows(dev, kind, frames=12, seed=0):
+    """Exact stride-1 and stride-2 forward and backward flows of a scene drawn
+    from a benchmark configuration's recipe (the renderer's random_scene, as
+    benchmark/bench_scenes.py draws it): `sintel` 1024x436 with 1-2 moving
+    spheres, `scannet` 640x480 static, focal 0.9 w."""
+    from particlesfm_tpu_torch.synth.render import random_scene
+
+    rng = np.random.default_rng(seed)
+    H, W, focal, dyn = ((436, 1024, (1.02, 1.38), (1, 2)) if kind == "sintel"
+                        else (480, 640, (0.9, 0.9), (0, 0)))
+    scene = random_scene(
+        rng, frames, H, W, focal=W * rng.uniform(*focal),
+        num_dynamic=int(rng.integers(dyn[0], dyn[1] + 1)),
+        motion_scale=float(rng.uniform(0.06, 0.20)), rot_scale=float(rng.uniform(0.08, 0.32)),
+        num_static_obj=int(rng.integers(6, 13)))
+    hits = {}
+    scene.hit_points = lambda v, _h=scene.hit_points: hits.get(v) or hits.setdefault(v, _h(v))
+    T = frames - 1
+    pairs = {"flow_f": [(i, i + 1) for i in range(T)], "flow_b": [(i + 1, i) for i in range(T)],
+             "flow_f2": [(i, i + 2) for i in range(T - 1)],
+             "flow_b2": [(i + 2, i) for i in range(T - 1)]}
+    return {k: torch.from_numpy(np.stack([scene.gt_flow(a, b) for a, b in v])).to(dev)
+            for k, v in pairs.items()}, H, W
+
+
+@pytest.mark.parametrize("kind,thres", [("sintel", 1.0), ("scannet", 3.0)])
+def test_tracker_with_k2_matches_plain_frame_by_frame(cuda, monkeypatch, kind, thres):
+    """run_tracker on a rendered scene of each configuration's recipe at the
+    cell's shape and pool: at every frame K2 and the plain torch ops refine
+    the same state; at most 1e-4 of the eligible slots move by more than
+    1e-4 px, and K2 launches once a frame from the second on."""
+    from particlesfm_tpu_torch.ops.flow_ops import flow_check
+
+    fl, H, W = _recipe_flows(cuda, kind)
+    occ, _ = flow_check(fl["flow_f"], fl["flow_b"], thres)
+    occ2, _ = flow_check(fl["flow_f2"], fl["flow_b2"], thres)
+    stats = []
+
+    def both(*args, upper_flow, num_iters, patch):
+        maps, state, f = args[:4], args[4:9], args[9]
+        eligible, got, want = _k2_vs_plain(maps + state, f, num_iters, patch, upper_flow)
+        stats.append((f,) + _gap_stats(eligible, got, want))
+        args[5].copy_(got[:, :2])
+        args[6].copy_(got[:, 2:])
+
+    monkeypatch.setattr(engine, "track_lm", both)
+    before = lm.launches
+    cfg = engine.TrackerConfig(sample_ratio=2, capacity=131072)
+    out = engine.run_tracker(fl["flow_f"], occ, fl["flow_f2"], occ2, cfg, H, W)
+    T = fl["flow_f"].shape[0]
+    assert lm.launches - before == T - 1 and [s[0] for s in stats] == list(range(1, T))
+    for f, n, bad, worst, exact in stats:
+        print(f"[track_lm] {kind} frame {f}: {n} eligible, {bad} > 1e-4 px, largest gap "
+              f"{worst:.3e} px, bit-equal {100 * exact:.4f}%")
+        assert bad <= 1e-4 * n
+    assert sum(s[1] for s in stats) > 50_000 and int(out.num_trajs) > 50_000
 
 
 def test_selfcal_card_matches_cpu(cuda):

@@ -2,7 +2,10 @@
 
 `optimize_locations` agrees with JAX at atol 1e-4; `run_tracker` +
 `assemble_tracks` fed identical flows (tests/flow_scenes.py:make_flow_scene)
-give identical track masks and positions within 1e-3 px.
+give identical track masks and positions within 1e-3 px. The refinement
+step's dispatch (`optimize.track_lm`) takes the plain torch ops on the CPU,
+bit for bit the engine's former inline step, and kernel K2's argument checks
+raise before anything is built or launched.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,9 @@ from particlesfm_tpu.tracks import optimize as joptimize
 from particlesfm_tpu.tracks import store as jstore
 from particlesfm_tpu_torch.ops.flow_ops import flow_check
 from particlesfm_tpu_torch.tracks import engine, optimize, store
+
+from particlesfm_tpu_torch.ops.sampling import bilinear_sample
+from particlesfm_tpu_torch.utils import profiling
 
 from flow_scenes import make_flow_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -108,3 +114,142 @@ def test_tracker_pool_overflow_matches_jax(scene):
     np.testing.assert_array_equal(tout.traj_ids.numpy(), np.asarray(jout.traj_ids))
     np.testing.assert_allclose(tout.positions.numpy(), np.asarray(jout.positions),
                                rtol=0, atol=1e-4)
+
+
+def _frame_state(scene, n=400, f=3, seed=2):
+    """A tracker state at frame f on the scene's flows: n slots over the
+    image and a 2 px band around it (the LM windows clip at all four
+    borders), a mix of survivors born by f-1, survivors born at f and dead
+    slots, and occluded anchors."""
+    rng = np.random.default_rng(seed)
+    fl = scene["flows"]
+    H, W = scene["height"], scene["width"]
+    occ2 = (rng.random(fl["flow_f2"].shape[:3]) < 0.3).astype(np.float32)
+    prev2 = np.stack([rng.uniform(-2, W + 1, n), rng.uniform(-2, H + 1, n)], -1)
+    prev1 = prev2 + fl["flow_f"][0, 0, 0] + rng.normal(scale=0.4, size=(n, 2))
+    new_pos = prev1 + fl["flow_f"][0, 0, 0] + rng.normal(scale=0.4, size=(n, 2))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    return dict(
+        flow12=t(fl["flow_f"][f]), flow01=t(fl["flow_f"][f - 1]),
+        flow02=t(fl["flow_f2"][f - 1]), occ02=t(occ2[f - 1]), prev2=t(prev2),
+        prev1=t(prev1), new_pos=t(new_pos), survive=torch.from_numpy(rng.random(n) < 0.8),
+        start_time=torch.from_numpy(rng.integers(0, f + 1, n).astype(np.int32)), f=f)
+
+
+@pytest.mark.parametrize("patch", [False, True])
+def test_track_lm_cpu_is_the_former_inline_step(scene, patch):
+    """On CPU tensors `track_lm` refines in place exactly (bit for bit) what
+    the engine's inline step computed with `optimize_locations`."""
+    st = _frame_state(scene)
+    f, x0 = st["f"], st["prev2"]
+    eligible = st["survive"] & (st["start_time"] <= f - 1)
+    f02 = bilinear_sample(st["flow02"], x0)
+    o02 = bilinear_sample(st["occ02"][..., None], x0)[..., 0]
+    scale = (1.0 - o02) * (torch.sqrt((f02 * f02).sum(-1)) < 20.0).to(o02.dtype)
+    p = torch.cat([st["prev1"], st["new_pos"]], dim=-1)
+    p_opt = optimize.optimize_locations(
+        p, x0 + bilinear_sample(st["flow01"], x0), x0 + f02, scale, st["flow12"],
+        mask=eligible.to(p.dtype), num_iters=12, patch=patch)
+    want1 = torch.where(eligible[:, None], p_opt[:, 0:2], st["prev1"])
+    want2 = torch.where(eligible[:, None], p_opt[:, 2:4], st["new_pos"])
+
+    got1, got2 = st["prev1"].clone(), st["new_pos"].clone()
+    optimize.track_lm(st["flow12"], st["flow01"], st["flow02"], st["occ02"], x0, got1, got2,
+                      st["survive"], st["start_time"], f, upper_flow=20.0, num_iters=12,
+                      patch=patch)
+    assert 50 < int(eligible.sum()) < len(eligible)
+    assert float((got1 - st["prev1"]).abs().max()) > 0.05      # the solve moved points
+    assert torch.equal(got1, want1) and torch.equal(got2, want2)
+    assert torch.equal(got1[~eligible], st["prev1"][~eligible])
+    assert torch.equal(got2[~eligible], st["new_pos"][~eligible])
+
+
+def test_tracker_skips_f0_where_no_slot_is_eligible(scene, monkeypatch):
+    """The engine runs the refinement at every frame but the first, and at
+    f == 0 the step changes nothing (every start_time is >= 0 > f - 1), so
+    the skipped loop equals the unskipped one: the same call at f == 0 on
+    the state the first refined frame was given leaves it as it was."""
+    fl = {k: torch.from_numpy(v) for k, v in scene["flows"].items()}
+    H, W = scene["height"], scene["width"]
+    occ, _ = flow_check(fl["flow_f"], fl["flow_b"], 1.0)
+    occ2, _ = flow_check(fl["flow_f2"], fl["flow_b2"], 1.0)
+    calls = []
+    real = optimize.track_lm
+
+    def spy(*args, **kw):
+        calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(engine, "track_lm", spy)
+    cfg = engine.TrackerConfig(sample_ratio=2, capacity=2048)
+    engine.run_tracker(fl["flow_f"], occ, fl["flow_f2"], occ2, cfg, H, W)
+    T = fl["flow_f"].shape[0]
+    assert [c[9] for c in calls] == list(range(1, T))
+
+    maps = (fl["flow_f"][0], fl["flow_f"][0], fl["flow_f2"][0], occ2[0])
+    prev2, prev1, new_pos, survive, start_time = calls[0][4:9]
+    assert bool(survive.any()) and int(start_time.min()) >= 0
+    got1, got2 = prev1.clone(), new_pos.clone()
+    real(*maps, prev2, got1, got2, survive, start_time, 0, upper_flow=cfg.upper_flow,
+         num_iters=cfg.gn_iters, patch=cfg.patch_lm)
+    assert torch.equal(got1, prev1) and torch.equal(got2, new_pos)
+
+
+def _no_kernel(monkeypatch):
+    """Make any attempt to build or load K2 fail the test; returns the launch
+    count before (the module's count is per process, so compare it)."""
+    def refuse(*a, **kw):
+        raise AssertionError("K2's library was loaded")
+    monkeypatch.setattr(optimize, "load_library", refuse)
+    return optimize.launches
+
+
+def test_track_lm_never_launches_or_counts_on_cpu(scene, monkeypatch):
+    launches = _no_kernel(monkeypatch)
+    fl = {k: torch.from_numpy(v) for k, v in scene["flows"].items()}
+    occ, _ = flow_check(fl["flow_f"], fl["flow_b"], 1.0)
+    occ2, _ = flow_check(fl["flow_f2"], fl["flow_b2"], 1.0)
+    before = len(profiling.records())
+    profiling.enable()
+    try:
+        with profiling.span("tracks.scan"):
+            engine.run_tracker(fl["flow_f"], occ, fl["flow_f2"], occ2,
+                               engine.TrackerConfig(sample_ratio=2, capacity=2048),
+                               scene["height"], scene["width"])
+    finally:
+        profiling.disable()
+    mine = profiling.records()[before:]
+    assert [r.name for r in mine] == ["tracks.scan"]
+    assert "tracks.lm_kernel" not in mine[0].counters
+    assert optimize.launches == launches
+
+
+def _bad_inputs(st, case):
+    st = dict(st)
+    if case == "dtype":
+        st["prev1"] = st["prev1"].double()
+    elif case == "survive_dtype":
+        st["survive"] = st["survive"].to(torch.uint8)
+    elif case == "non_contiguous":
+        st["flow12"] = st["flow12"].transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "slot_count":
+        st["new_pos"] = torch.cat([st["new_pos"], st["new_pos"][:1]])
+    elif case == "map_shape":
+        st["occ02"] = st["occ02"][:-1]
+    elif case == "num_iters":
+        st["num_iters"] = -1
+    return st
+
+
+@pytest.mark.parametrize("case", ["dtype", "survive_dtype", "non_contiguous", "slot_count",
+                                  "map_shape", "num_iters", "cpu_device"])
+def test_track_lm_kernel_checks_raise_before_any_launch(scene, case, monkeypatch):
+    """K2's wrapper refuses what the kernel does not take (and CPU tensors)
+    before it builds or launches anything."""
+    launches = _no_kernel(monkeypatch)
+    st = _bad_inputs(dict(_frame_state(scene), num_iters=12), case)
+    with pytest.raises(ValueError):
+        optimize.track_lm_cuda(st["flow12"], st["flow01"], st["flow02"], st["occ02"],
+                               st["prev2"], st["prev1"], st["new_pos"], st["survive"],
+                               st["start_time"], st["f"], 20.0, st["num_iters"], True)
+    assert optimize.launches == launches
