@@ -62,37 +62,46 @@ def _net_flow(model, i1: torch.Tensor, i2: torch.Tensor, iters: int, scale: floa
     return fl * torch.tensor([Wp / ws, Hp / hs], dtype=fl.dtype, device=fl.device)
 
 
+VARIANTS = {"compact": compact_raft, "things": RAFT}
+
+
 def model_from_meta(meta: dict) -> RAFT:
-    if meta.get("variant", "compact") == "compact":
-        return compact_raft()
-    return RAFT()
+    """The RAFT a checkpoint's sidecar names: "compact" (the default when
+    the sidecar or its `variant` is missing) or "things", the published
+    raft-things widths."""
+    variant = meta.get("variant", "compact")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown RAFT variant {variant!r} (known: {', '.join(VARIANTS)})")
+    return VARIANTS[variant]()
 
 
 def save_flow_checkpoint(path, model: RAFT, variant: str = "compact", extra: dict | None = None):
     """Write a flow checkpoint either package loads: the flax msgpack blob
-    {"params": tree} of the model's weights and the `.json` sidecar
+    {"params": tree} of the model's weights, with {"batch_stats": tree}
+    for a batch-norm context encoder, and the `.json` sidecar
     {"variant", **extra} (reference flow/infer.py:41-51)."""
     path = Path(path)
-    save_msgpack(path, {"params": raft_variables_from_torch(model.state_dict())["params"]})
+    save_msgpack(path, raft_variables_from_torch(model.state_dict()))
     meta = {"variant": variant}
     meta.update(extra or {})
     Path(str(path) + ".json").write_text(json.dumps(meta, indent=2))
 
 
 def load_flow_checkpoint(path):
-    """-> (params tree of numpy arrays, sidecar meta dict)."""
+    """-> (params tree of numpy arrays, batch_stats tree ({} without batch
+    norm), sidecar meta dict)."""
     blob = load_msgpack(path)
     meta_path = Path(str(path) + ".json")
     meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-    return blob["params"], meta
+    return blob["params"], blob.get("batch_stats", {}), meta
 
 
 def load_model(path, device) -> tuple:
     """RAFT with the checkpoint's weights (strict load), in eval mode on
     `device`, and the checkpoint's meta."""
-    params, meta = load_flow_checkpoint(path)
+    params, stats, meta = load_flow_checkpoint(path)
     model = model_from_meta(meta)
-    model.load_state_dict(raft_state_dict_from_jax(params), strict=True)
+    model.load_state_dict(raft_state_dict_from_jax(params, stats), strict=True)
     return model.to(device).eval(), meta
 
 
@@ -140,8 +149,8 @@ def load_flow_apply_batch(ckpt, iters=None, scale: float = 1.0, device="cuda"):
 def _replicas(ckpt, mesh):
     """One RAFT per distinct device of `mesh`, each loaded from the same
     converted state dict; and the checkpoint's meta."""
-    params, meta = load_flow_checkpoint(ckpt)
-    sd = raft_state_dict_from_jax(params)
+    params, stats, meta = load_flow_checkpoint(ckpt)
+    sd = raft_state_dict_from_jax(params, stats)
     models = {}
     for d in mesh.distinct():
         model = model_from_meta(meta)

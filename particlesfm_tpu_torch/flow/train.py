@@ -104,7 +104,7 @@ def build_model(seed: int, init_ckpt=None, device="cuda", log=print):
     model = compact_raft(remat=True)
     optim.flax_init_(model, torch.Generator().manual_seed(seed))
     if init_ckpt and Path(init_ckpt).exists():
-        params, _ = load_flow_checkpoint(init_ckpt)
+        params, _, _ = load_flow_checkpoint(init_ckpt)
         model.load_state_dict(raft_state_dict_from_jax(params), strict=True)
         log(f"[flowtrain] warm-started params from {init_ckpt}")
     model.lookup = lookup_corr_hat

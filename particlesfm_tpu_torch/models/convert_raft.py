@@ -9,12 +9,25 @@ parameter-free and map to the functional instance norm; cnet BatchNorm
 running stats land in the `batch_stats` collection.
 
 CLI:  python -m particlesfm_tpu_torch.models.convert_raft raft-things.pth out.msgpack
+writes out.msgpack and its sidecar out.msgpack.json ({"variant": "things",
+"iters": 20}), which `run_pipeline` loads through `--raft_ckpt out.msgpack`.
+The pipeline's GRU iteration count is its own `flow.iters` (default 8),
+not the sidecar's: run princeton-vl/RAFT's 20 with
+`--raft_ckpt out.msgpack --set flow.iters=20`.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
+
+# The sidecar the CLI writes beside its msgpack: `flow.infer.load_model` builds
+# the raft-things widths for it, and `flow.infer`'s applies called without an
+# iteration count run its `iters`, the 20 of princeton-vl/RAFT's demo.py
+# (`run_pipeline` always passes its `flow.iters`).
+SIDECAR = {"variant": "things", "iters": 20}
 
 
 def _conv(sd, torch_name):
@@ -161,7 +174,8 @@ def main(argv=None):
     sd = torch.load(args.torch_ckpt, map_location="cpu")
     sd = {k: v.numpy() for k, v in sd.items()}
     save_msgpack(args.out_msgpack, convert_torch_raft(sd))
-    print(f"wrote {args.out_msgpack}")
+    Path(args.out_msgpack + ".json").write_text(json.dumps(SIDECAR, indent=2))
+    print(f"wrote {args.out_msgpack} and its sidecar {args.out_msgpack}.json")
     return 0
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.corr_lookup import lookup_corr
+from ..utils import profiling
 
 
 def _instance_norm(x: torch.Tensor) -> torch.Tensor:
@@ -145,15 +146,43 @@ def lookup_corr_hat(pyramid, coords: torch.Tensor, radius: int = 4) -> torch.Ten
     return torch.cat(out, dim=-1)
 
 
+class _Im2colConv2d(nn.Conv2d):
+    """An `nn.Conv2d` that always runs PyTorch's own im2col + GEMM
+    convolution (`aten.thnn_conv2d`, the path `F.conv2d` takes on a card
+    without cuDNN), never cuDNN. `BasicMotionEncoder` builds its 3x3
+    convolutions of 256 or more input channels as this class: the
+    raft-things motion encoder's `convc2` and `conv`; the compact net has
+    none.
+
+    On an H100 with TF32 off (cuDNN 9.2, torch 2.11), cuDNN's heuristics run
+    those two as FFTs that launch a small complex GEMM per tile: at
+    8 x 55 x 128, 256 -> 126 channels took 334 ms a call against 1.4 ms
+    here, and 256 -> 192 25.5 ms against 2.0. The 256-channel rule is set
+    by rounding, not by speed: the compact net's 64 -> 128 heads are faster
+    here too (0.46 against 4.7 ms a call), but moved off cuDNN their
+    rounding changed the accepted cells' poses (scannet scene 0's focal
+    error 0.0077 -> 0.0608), so the compact net keeps cuDNN."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.ops.aten.thnn_conv2d(x, self.weight, self.kernel_size, self.bias,
+                                          self.stride, self.padding)
+
+
+def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    """A 3x3 convolution, padding 1, off cuDNN from 256 input channels
+    (`_Im2colConv2d`)."""
+    return (_Im2colConv2d if cin >= 256 else nn.Conv2d)(cin, cout, 3, padding=1)
+
+
 class BasicMotionEncoder(nn.Module):
     def __init__(self, corr_channels: int, dims=(256, 192, 128, 64, 128)):
         super().__init__()
         d = dims
         self.convc1 = nn.Conv2d(corr_channels, d[0], 1)
-        self.convc2 = nn.Conv2d(d[0], d[1], 3, padding=1)
+        self.convc2 = _conv3x3(d[0], d[1])
         self.convf1 = nn.Conv2d(2, d[2], 7, padding=3)
         self.convf2 = nn.Conv2d(d[2], d[3], 3, padding=1)
-        self.conv = nn.Conv2d(d[1] + d[3], d[4] - 2, 3, padding=1)
+        self.conv = _conv3x3(d[1] + d[3], d[4] - 2)
 
     def forward(self, flow, corr):
         c = F.relu(self.convc1(corr))
@@ -257,17 +286,25 @@ class RAFT(nn.Module):
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int = 20,
                 all_iters: bool = False):
         """all_iters: every iteration's upsampled flow, with that iteration's
-        mask, [B, iters, H, W, 2] (the sequence loss's input, raft.py:367)."""
-        B = image1.shape[0]
-        imgs = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2)
-        imgs = 2.0 * (imgs / 255.0) - 1.0
-        fmaps = self.fnet(imgs)
-        cnet = self.cnet(imgs[:B])
-        net = torch.tanh(cnet[:, : self.hidden_dim])
-        inp = F.relu(cnet[:, self.hidden_dim:])
+        mask, [B, iters, H, W, 2] (the sequence loss's input, raft.py:367).
 
-        pyramid = build_corr_pyramid(fmaps[:B], fmaps[B:], self.num_levels)
-        del fmaps
+        With tracing on (`utils.profiling`), the encoders and the correlation
+        pyramid are span `flow.encode` and the GRU iterations with their
+        lookups span `flow.update`, timed on the input's device; counter
+        `flow.gru_iters` adds `iters` per call. The last mask head and the
+        convex upsampling lie outside both."""
+        B = image1.shape[0]
+        dev = image1.device
+        with profiling.span("flow.encode", device=dev):
+            imgs = torch.cat([image1, image2], dim=0).permute(0, 3, 1, 2)
+            imgs = 2.0 * (imgs / 255.0) - 1.0
+            fmaps = self.fnet(imgs)
+            cnet = self.cnet(imgs[:B])
+            net = torch.tanh(cnet[:, : self.hidden_dim])
+            inp = F.relu(cnet[:, self.hidden_dim:])
+
+            pyramid = build_corr_pyramid(fmaps[:B], fmaps[B:], self.num_levels)
+            del fmaps
         H8, W8 = net.shape[-2:]
         ys, xs = torch.meshgrid(
             torch.arange(H8, dtype=net.dtype, device=net.device),
@@ -288,12 +325,14 @@ class RAFT(nn.Module):
             return net, coords1, None
 
         coords1, ups = coords0, []
-        for _ in range(iters):
-            if self.remat and torch.is_grad_enabled():
-                net, coords1, up = checkpoint(step, net, coords1, use_reentrant=False)
-            else:
-                net, coords1, up = step(net, coords1)
-            ups.append(up)
+        with profiling.span("flow.update", device=dev):
+            profiling.count("flow.gru_iters", iters)
+            for _ in range(iters):
+                if self.remat and torch.is_grad_enabled():
+                    net, coords1, up = checkpoint(step, net, coords1, use_reentrant=False)
+                else:
+                    net, coords1, up = step(net, coords1)
+                ups.append(up)
         if all_iters:
             return torch.stack(ups, dim=1).permute(0, 1, 3, 4, 2)
         # only the last iteration's mask is used (raft.py:370)

@@ -39,7 +39,10 @@ def _assert_same_tree(a, b, path=""):
 
 
 def test_repo_has_three_checkpoints():
-    assert len(CKPTS) == 3
+    """The three trained checkpoints, and the seeded raft-things one that the
+    benchmark's `raft_things` configuration runs."""
+    assert [p.name for p in CKPTS] == ["depth_synth.msgpack", "motionseg_synth3d.msgpack",
+                                       "raft_synth.msgpack", "raft_things_seed0.msgpack"]
 
 
 @pytest.mark.parametrize("path", CKPTS, ids=lambda p: p.name)

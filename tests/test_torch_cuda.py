@@ -9,6 +9,8 @@ the port only (no JAX), so it runs on a GPU machine without the reference:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -293,6 +295,58 @@ def test_tracker_with_k2_matches_plain_frame_by_frame(cuda, monkeypatch, kind, t
               f"{worst:.3e} px, bit-equal {100 * exact:.4f}%")
         assert bad <= 1e-4 * n
     assert sum(s[1] for s in stats) > 50_000 and int(out.num_trajs) > 50_000
+
+
+THINGS_CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "raft_things_seed0.msgpack"
+
+
+def test_things_raft_with_k1_matches_plain_lookup(cuda):
+    """The raft-things RAFT of the benchmark's `raft_things` configuration
+    (its seeded checkpoint) on one block of 8 pairs of a rendered 1024x436
+    scene, edge-padded to 1024x440, at 20 GRU iterations: with K1 (20
+    launches) and with `lookup_corr_plain` swapped in, as chip_smoke.py holds
+    the compact net. K1 sums each lookup's bilinear terms in another order
+    than plain, which moves a correlation feature by ~1e-6 of its size; 20
+    GRU iterations carry that into the flow. The bounds are chip_smoke.py's
+    for the compact net at 8 iterations; a window read one row or column
+    off, or a level dropped, moves the flow by tenths of a pixel."""
+    from particlesfm_tpu_torch.flow.infer import _pad8, load_model
+    from particlesfm_tpu_torch.synth import random_scene
+
+    sc = random_scene(np.random.default_rng(0), num_views=9, height=436, width=1024,
+                      motion_scale=0.15, rot_scale=0.2, num_static_obj=8, num_dynamic=1)
+    frames = torch.from_numpy(np.stack([sc.render(i) for i in range(9)])).to(cuda)
+    x = _pad8(frames.to(torch.float32), 4, 0)
+    model, meta = load_model(THINGS_CKPT, cuda)
+    assert meta["variant"] == "things" and meta["iters"] == 20
+    with torch.inference_mode():
+        before = cl.launches
+        fk = model(x[:8], x[1:], iters=20)
+        assert cl.launches == before + 20
+        model.lookup = cl.lookup_corr_plain
+        fp = model(x[:8], x[1:], iters=20)
+    d = (fk - fp).abs()
+    mean_d, max_d = float(d.mean()), float(d.max())
+    print(f"things RAFT, 8 pairs at 1024x440, 20 iterations: |K1 - plain| flow mean "
+          f"{mean_d:.3e} px, max {max_d:.3e} px; |flow| mean {float(fp.norm(dim=-1).mean()):.3f} px")
+    assert mean_d <= 1e-3 and max_d <= 1e-2
+
+
+@pytest.mark.parametrize("cin,cout", [(256, 192), (256, 126)])
+def test_im2col_conv_is_conv2d_without_cudnn(cuda, cin, cout):
+    """The raft-things motion encoder's two `_Im2colConv2d`s at a block of 8
+    pairs (55x128): bit-equal to `F.conv2d` with cuDNN turned off, the path
+    the limits of the `raft_things` configuration were calibrated on."""
+    from particlesfm_tpu_torch.models.raft import _Im2colConv2d
+
+    torch.manual_seed(0)
+    conv = _Im2colConv2d(cin, cout, 3, padding=1).to(cuda)
+    x = torch.randn(8, cin, 55, 128, device=cuda)
+    with torch.inference_mode():
+        got = conv(x)
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    assert torch.equal(got, want)
 
 
 def test_selfcal_card_matches_cpu(cuda):

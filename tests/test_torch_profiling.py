@@ -147,6 +147,41 @@ def test_span_stamps_fall_on_the_profilers_clock(sleep_s, tracing):
         assert abs(r.end_ns - e.end_ns()) < 1_000_000, (r, e.end_ns())
 
 
+@pytest.mark.parametrize("on", [True, False], ids=["tracing_on", "tracing_off"])
+def test_raft_spans_open_inside_flow_net_and_count_iterations(on, marks):
+    """Three pairs in blocks of two through the pair apply: each block's
+    `flow.net` holds `flow.encode` and then `flow.update`, whose counter
+    `flow.gru_iters` adds the block's 3 iterations; off, nothing is recorded."""
+    from particlesfm_tpu_torch.flow.infer import load_flow_apply_pairs
+    from particlesfm_tpu_torch.pipeline.run import DEFAULT_RAFT_CKPT
+    from particlesfm_tpu_torch.synth import random_scene
+
+    sc = random_scene(np.random.default_rng(1), num_views=4, height=64, width=96,
+                      motion_scale=0.15, rot_scale=0.2, num_static_obj=3)
+    stack = torch.from_numpy(np.stack([sc.render(i) for i in range(4)]))
+    apply = load_flow_apply_pairs(DEFAULT_RAFT_CKPT, iters=3, per_device=2, device="cpu")
+    before = len(profiling.records())
+    if on:
+        profiling.enable()
+    try:
+        apply(stack, [0, 1, 2], [1, 2, 3])
+    finally:
+        profiling.disable()
+    recs = _new(before)
+    if not on:
+        assert recs == [] and marks == {"mark": [], "sync": []}
+        return
+    nets = [r for r in recs if r.name == "flow.net"]
+    assert len(nets) == 2
+    for net in nets:
+        kids = [r for r in recs if r.name in ("flow.encode", "flow.update")
+                and net.start_ns <= r.start_ns <= r.end_ns <= net.end_ns]
+        assert [k.name for k in kids] == ["flow.encode", "flow.update"]
+        assert kids[0].end_ns <= kids[1].start_ns
+        assert kids[0].counters == {} and kids[1].counters == {"flow.gru_iters": 3}
+    assert sum(r.counters.get("flow.gru_iters", 0) for r in recs) == 6
+
+
 def _scene(tmp_path):
     from particlesfm_tpu_torch.synth import random_scene
 
