@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .engine import TrackerOutput
 
 
@@ -85,27 +86,44 @@ def assemble_tracks(out: TrackerOutput, min_len: int = 3) -> TrackArrays:
     arrays, dropping trajectories shorter than min_len (upstream's
     main_connect_point_trajectories.py:50-55).
 
-    Positions cross to the host as u16 fixed point at 1/32 px, as the
-    reference does (store.py:99-110), so both packages write the same
-    quantized tracks.npz."""
-    q = torch.clamp(torch.round(out.positions * 32.0), 0, 65535).to(torch.int32)
-    positions = q.cpu().numpy().astype(np.uint16).astype(np.float32) * (1.0 / 32.0)
-    traj_ids = out.traj_ids.cpu().numpy()
-    # the engine emits id=-1 exactly where valid=False
-    valid = traj_ids >= 0
+    The arrays are built on the tracker's device and only the kept rows
+    cross to the host, one copy per array. Positions are quantised there to
+    the reference's u16 fixed point at 1/32 px (store.py:99-110): the clamped
+    integer is below 2^16, so it and its product with 1/32 are exact in
+    float32, and tracks.npz holds the values of the reference's u16 crossing
+    bit for bit."""
+    ids_tc = out.traj_ids
+    T1, C = ids_tc.shape
+    dev = ids_tc.device
     n = int(out.num_trajs)
-    T1 = positions.shape[0]
-
-    tv, cv = np.nonzero(valid)
-    ids = traj_ids[tv, cv]
-
-    xy = np.zeros((n, T1, 2), np.float32)
-    mask = np.zeros((n, T1), bool)
-    xy[ids, tv] = positions[tv, cv]
-    mask[ids, tv] = True
-
-    keep = mask.sum(axis=1) >= min_len
-    return TrackArrays(xy=xy[keep], mask=mask[keep])
+    # the engine emits id=-1 exactly where valid=False; (id, frame) pairs are
+    # unique, since a trajectory holds one slot at a time
+    flat = torch.nonzero(ids_tc.reshape(-1) >= 0).squeeze(1)
+    ids = ids_tc.reshape(-1)[flat].long()
+    keep = torch.bincount(ids, minlength=n) >= min_len
+    n_kept = int(keep.sum())
+    # kept rows in ascending id order; a dropped trajectory's entries land in
+    # the spare row n_kept, which is cut off before the fetch
+    row = torch.where(keep, torch.cumsum(keep, 0) - 1, n_kept)[ids]
+    del ids
+    q = torch.clamp(torch.round(out.positions.reshape(-1, 2)[flat] * 32.0), 0, 65535)
+    # through int32 as through the reference's u16: -0.0 becomes 0.0
+    q = q.to(torch.int32).to(torch.float32)
+    t = flat // C
+    del flat
+    xy = torch.zeros((n_kept + 1, T1, 2), dtype=torch.float32, device=dev)
+    mask = torch.zeros((n_kept + 1, T1), dtype=torch.bool, device=dev)
+    xy[row, t] = q * (1.0 / 32.0)
+    mask[row, t] = True
+    del row, t, q
+    xy, mask = xy[:n_kept], mask[:n_kept]
+    if dev.type == "cuda":
+        profiling.count("tracks.fetch_bytes", xy.nbytes + mask.nbytes)
+    # xy's copy is queued without a wait (into pinned memory from CUDA);
+    # mask's blocking copy, behind it on the same stream, waits for both
+    xy = xy.to("cpu", non_blocking=True)
+    mask = mask.cpu()
+    return TrackArrays(xy=xy.numpy(), mask=mask.numpy())
 
 
 def sample_inside_window(

@@ -2,13 +2,15 @@
 torch-op stages (self-calibration, depth, motion seg) and one step of each
 trainer on the card against the same code on the CPU. The tracker's kernel
 K2 is held against its plain torch version on the card, on random blocks and
-frame by frame along rendered scenes of both benchmark configurations.
+frame by frame along rendered scenes of both benchmark configurations; the
+tracker's assembly on the card against the same emissions on the CPU.
 
 Marked `cuda`; they skip without a CUDA device. This file imports torch and
 the port only (no JAX), so it runs on a GPU machine without the reference:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import time
 from pathlib import Path
 
 import numpy as np
@@ -295,6 +297,73 @@ def test_tracker_with_k2_matches_plain_frame_by_frame(cuda, monkeypatch, kind, t
               f"{worst:.3e} px, bit-equal {100 * exact:.4f}%")
         assert bad <= 1e-4 * n
     assert sum(s[1] for s in stats) > 50_000 and int(out.num_trajs) > 50_000
+
+
+def _cell_emissions(T1=48, C=131072, seed=0):
+    """A tracker output at the cells' shape: every slot holds trajectories
+    back to back (a birth in 1 of 16 frames), numbered by birth frame then
+    slot as the engine numbers them, a tenth of them absent (gaps in the
+    numbering, ~90% of the plane occupied), positions over a 1024x436 frame
+    and its border, with some beyond the u16 range on both sides."""
+    rng = np.random.default_rng(seed)
+    births = rng.random((T1, C)) < 1 / 16
+    births[0] = True
+    start = np.maximum.accumulate(np.where(births, np.arange(T1)[:, None], 0), axis=0)
+    keys, seg = np.unique(start * C + np.arange(C), return_inverse=True)
+    absent = rng.random(len(keys)) < 0.1
+    ids = np.where(absent[seg.reshape(T1, C)], -1, seg.reshape(T1, C)).astype(np.int32)
+    pos = rng.uniform(-3.0, 1027.0, (T1, C, 2)).astype(np.float32)
+    pos[..., 1] *= 440.0 / 1030.0
+    far = rng.random((T1, C)) < 0.01
+    pos[far, 0] = rng.choice(np.float32([-1e3, -1e-3, 2047.99, 3e3]), int(far.sum()))
+    return engine.TrackerOutput(
+        positions=torch.from_numpy(pos), traj_ids=torch.from_numpy(ids),
+        valid=torch.from_numpy(ids >= 0), num_trajs=torch.tensor(len(keys), dtype=torch.int32),
+        overflow=torch.tensor(0, dtype=torch.int32))
+
+
+def test_track_assembly_card_equals_cpu(cuda):
+    """`store.assemble_tracks` on the card gives the CPU's arrays of the same
+    emissions to the last bit (48 x 131,072 slots), and counts the bytes it
+    fetches, which are the kept arrays' own."""
+    from particlesfm_tpu_torch.tracks import store
+    from particlesfm_tpu_torch.utils import profiling
+
+    out = _cell_emissions()
+    want = store.assemble_tracks(out, min_len=3)
+    dev_out = engine.TrackerOutput(*(x.to(cuda) for x in out))
+    store.assemble_tracks(dev_out, min_len=3)               # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = len(profiling.records())
+    profiling.enable()
+    try:
+        with profiling.span("tracks.assemble", device=cuda):
+            got = store.assemble_tracks(dev_out, min_len=3)
+    finally:
+        profiling.disable()
+    rec = profiling.records()[before:]
+    assert [r.name for r in rec] == ["tracks.assemble"]
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.assemble_tracks(dev_out, min_len=3)
+        times.append(time.perf_counter() - t0)
+    n_valid = int((out.traj_ids >= 0).sum())
+    print(f"[assemble] {int(out.num_trajs)} trajectories, {n_valid} entries, "
+          f"{got.num_tracks} kept; card {1e3 * sorted(times)[2]:.2f} ms (median of 5, host "
+          f"clock), span {1e3 * rec[0].seconds():.2f} ms; fetched "
+          f"{rec[0].counters['tracks.fetch_bytes'] / 1e6:.3f} MB; peak above the inputs "
+          f"{peak / 1e6:.1f} MB")
+    assert got.num_tracks > 100_000 and 0.85 < n_valid / out.traj_ids.numel() < 0.95
+    assert isinstance(got.xy, np.ndarray) and isinstance(got.mask, np.ndarray)
+    assert got.xy.shape == want.xy.shape and got.mask.shape == want.mask.shape
+    assert got.xy.tobytes() == want.xy.tobytes()
+    np.testing.assert_array_equal(got.mask, want.mask)
+    assert rec[0].counters["tracks.fetch_bytes"] == got.xy.nbytes + got.mask.nbytes
 
 
 THINGS_CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "raft_things_seed0.msgpack"

@@ -253,3 +253,91 @@ def test_track_lm_kernel_checks_raise_before_any_launch(scene, case, monkeypatch
                                st["prev2"], st["prev1"], st["new_pos"], st["survive"],
                                st["start_time"], st["f"], 20.0, st["num_iters"], True)
     assert optimize.launches == launches
+
+
+def _assemble_numpy(out, min_len):
+    """The former numpy body of `store.assemble_tracks`: the whole emission
+    plane fetched to the host (positions as u16 at 1/32 px), scattered into
+    dense [num_trajs, T+1] arrays, short rows dropped at the end."""
+    q = torch.clamp(torch.round(out.positions * 32.0), 0, 65535).to(torch.int32)
+    positions = q.cpu().numpy().astype(np.uint16).astype(np.float32) * (1.0 / 32.0)
+    traj_ids = out.traj_ids.cpu().numpy()
+    valid = traj_ids >= 0
+    n = int(out.num_trajs)
+    T1 = positions.shape[0]
+    tv, cv = np.nonzero(valid)
+    ids = traj_ids[tv, cv]
+    xy = np.zeros((n, T1, 2), np.float32)
+    mask = np.zeros((n, T1), bool)
+    xy[ids, tv] = positions[tv, cv]
+    mask[ids, tv] = True
+    keep = mask.sum(axis=1) >= min_len
+    return store.TrackArrays(xy=xy[keep], mask=mask[keep])
+
+
+def _emissions(case, min_len, T1=12, C=96, n=160, seed=5):
+    """A tracker output of `case`: each trajectory holds one slot in each of
+    its frames, every fifth id has no entry (gaps in the numbering), lengths
+    include min_len - 1 and min_len exactly, and invalid slots hold garbage."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((T1, C), -1, np.int32)
+    pos = rng.uniform(-50.0, 2100.0, (T1, C, 2)).astype(np.float32)
+    if case == "no_trajs":
+        n = 0
+    lengths = rng.integers(1, T1 + 1, n)
+    lengths[1::7], lengths[2::7] = min_len - 1, min_len
+    if case == "none_kept":
+        lengths[:] = min_len - 1
+    for k in range(n):
+        if k % 5 == 0 or case == "no_valid_slot":
+            continue
+        frames = np.sort(rng.choice(T1, lengths[k], replace=False))
+        for t in frames:
+            free = np.nonzero(ids[t] < 0)[0]
+            if len(free):
+                ids[t, rng.choice(free)] = k
+    if case == "clamp":
+        # below 0, -0.0 after rounding, the largest u16, beyond it, ties
+        edge = np.array([-3.0, -1e-3, -0.0, 0.0, 1 / 64, 3 / 64, 2047.96875, 2047.99,
+                         2048.0, 2500.0, 1e6, 5.015625], np.float32)
+        pos[..., 0] = rng.choice(edge, (T1, C))
+    return engine.TrackerOutput(
+        positions=torch.from_numpy(pos), traj_ids=torch.from_numpy(ids),
+        valid=torch.from_numpy(ids >= 0), num_trajs=torch.tensor(n, dtype=torch.int32),
+        overflow=torch.tensor(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("min_len", [1, 3])
+@pytest.mark.parametrize("case", ["random", "clamp", "no_valid_slot", "none_kept",
+                                  "no_trajs"])
+def test_assembly_equals_the_former_numpy_body(case, min_len):
+    """The assembly on tensors gives the former host assembly's arrays to the
+    last bit (the sign of zero included), as numpy arrays, and counts no
+    fetch off the card."""
+    out = _emissions(case, min_len)
+    want = _assemble_numpy(out, min_len)
+    before = len(profiling.records())
+    profiling.enable()
+    try:
+        with profiling.span("tracks.assemble"):
+            got = store.assemble_tracks(out, min_len=min_len)
+    finally:
+        profiling.disable()
+    assert [r.name for r in profiling.records()[before:]] == ["tracks.assemble"]
+    assert "tracks.fetch_bytes" not in profiling.records()[-1].counters
+    assert isinstance(got.xy, np.ndarray) and isinstance(got.mask, np.ndarray)
+    assert got.xy.dtype == np.float32 and got.mask.dtype == np.bool_
+    assert got.xy.shape == want.xy.shape and got.mask.shape == want.mask.shape
+    np.testing.assert_array_equal(got.xy, want.xy)
+    np.testing.assert_array_equal(got.mask, want.mask)
+    assert got.xy.tobytes() == want.xy.tobytes()
+    lengths = want.mask.sum(1)
+    if case in ("random", "clamp"):
+        assert got.num_tracks > 50 and (lengths == min_len).any()
+        dropped = (out.traj_ids.numpy() >= 0).sum() - want.mask.sum()
+        assert (dropped > 0) == (min_len > 1)
+    else:
+        assert got.num_tracks == 0
+        assert ((out.traj_ids.numpy() >= 0).any()) == (case == "none_kept" and min_len > 1)
+    if case == "clamp":
+        assert got.xy[..., 0][got.mask].min() == 0 and got.xy.max() == 65535 / 32
