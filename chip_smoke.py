@@ -2,7 +2,6 @@
 against its plain version, drives the port's main path and checks its output.
 
     python3 chip_smoke.py            # all phases, one CUDA device
-    python3 chip_smoke.py --profile  # also device time by kernel of one more run
     python3 chip_smoke.py --dump DIR  # also the checks' inputs, for the JAX compare
                                       # (and a labeled-track subset + selfcal.json,
                                       # and [mesh]'s BA problem and 4-shard result)
@@ -451,34 +450,6 @@ def phase_track_lm(dev, C=131_072, H=436, W=1024, f=5, num_iters=12):
         f"{bound_bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {bound_ops_ms:.4f} ms; "
         f"{res['bound_by']}) -> {100 * res['bound_ms'] / ms:.1f}% of bound")
     return res
-
-
-def profile_pipeline(dev, img_dir: Path, cfg) -> None:
-    """One more run_pipeline under torch.profiler: device time by kernel and
-    the device's busy share of the run's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from particlesfm_tpu_torch.pipeline import run as R
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        R.run_pipeline(img_dir, WORK / "out_profiled", cfg, log=lambda *a: None, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    log(f"[profile] run_pipeline {wall:.2f}s wall (profiled), device kernels "
-        f"{busy:.2f}s = {100 * busy / wall:.1f}% busy")
-    for e in rows[:20]:
-        log(f"[profile] {e.self_device_time_total / 1e3:10.1f} ms  x{e.count:<6} "
-            f"{e.key[:100]}")
-    for e in rows:
-        if "corr_lookup_kernel" in e.key:
-            log(f"[profile] K1 in run_pipeline: {e.count} launches, "
-                f"{e.self_device_time_total / 1e3 / max(e.count, 1):.4f} ms device time each")
 
 
 def check_selfcal(out_dir: Path, msgs, flows, gt_focal: float) -> dict:
@@ -937,7 +908,7 @@ def check_sfm(dev, cfg, out_dir: Path, msgs, rec, gt, solvers: SolverLog, sfm_s:
     return out
 
 
-def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False):
+def phase_slice(dev, frames: int, dump: bool = False):
     import torch
 
     from particlesfm_tpu_torch.ops import corr_lookup as cl
@@ -1032,8 +1003,6 @@ def phase_slice(dev, frames: int, profile_run: bool = False, dump: bool = False)
                                 gt["dynamic"]))
     dump.update(check_sfm(dev, cfg, out_dir, msgs, kept["sfm_stage"], gt, solvers,
                           stage_s["sfm"], stage_gb["sfm_stage"], dump_on))
-    if profile_run:
-        profile_pipeline(dev, img_dir, cfg)
     return dict(launches=launches, lm_launches=lm_launches, img_dir=img_dir, dump=dump,
                 gt=gt, out_dir=out_dir, last_ba=solvers.last["bundle_adjust"], cfg=cfg,
                 flows=flows, tracks=tracks, depths=kept["depth_stage"])
@@ -1132,7 +1101,7 @@ def mesh_checks(dev, tag: str, mesh, s: dict):
     if d_one or d_run:
         fail(f"mesh: {tag} depths differ from the one-device depths ({d_one}, {d_run})")
 
-    # (d) segment_tracks' window split on the run's tracks
+    # (d) the seg apply's window split, under segment_tracks on the run's tracks
     H, W = images.shape[1:3]
     seg1, segm = R._load_seg_apply(cfg, dev), R._load_seg_apply(cfg, mesh)
     thr = cfg.motionseg.threshold
@@ -1153,11 +1122,9 @@ def mesh_checks(dev, tag: str, mesh, s: dict):
     lab1, t1 = _synced(lambda: segment_tracks(recording(seg1, "one"), s["tracks"], depths,
                                               (H, W), **kw).labels)
     labm, tm = _synced(lambda: segment_tracks(recording(segm, "mesh"), s["tracks"], depths,
-                                              (H, W), mesh=mesh, **kw).labels)
+                                              (H, W), **kw).labels)
     B = logits["one"][0].shape[0]
-    lg1 = torch.cat(logits["one"], 1)
-    lgm = torch.cat([torch.cat(logits["mesh"][i:i + nd])[:B]
-                     for i in range(0, len(logits["mesh"]), nd)], 1)
+    lg1, lgm = torch.cat(logits["one"], 1), torch.cat(logits["mesh"], 1)
     run_labels = TrackArrays.load(s["out_dir"] / "trajectories_labeled" / "tracks.npz").labels
     d_lg = float((lgm - lg1).abs().max())
     n_run, n_one = int((labm != run_labels).sum()), int((labm != lab1).sum())
@@ -1196,9 +1163,9 @@ def phase_mesh(dev, s: dict, dump: bool) -> dict:
     """Phase [mesh]: the device mesh on [slice]'s own data. make_mesh()
     covers every visible card; on a logical mesh of MESH_SHARDS copies of
     the card (overhead and correctness, not scaling) and, with more than
-    one card, on the real mesh: the sharded occlusion check, flow, depth and
-    seg applies equal the one-device ones bit for bit (the same K1 launch
-    count) and sharded BA stays within the reference test's tolerances of
+    one card, on the real mesh: the sharded occlusion check, flow and depth
+    applies equal the one-device ones bit for bit (the same K1 launch
+    count), the seg apply's labels equal them, and sharded BA stays within the reference test's tolerances of
     plain BA; then the same sharded BA in a world-size-1 NCCL group, whose
     all-reduce must leave it bit-identical. Returns K1's launches in the
     logical mesh's flow apply and, with `dump`, the BA problem and the
@@ -2318,8 +2285,6 @@ def phase_sweep(dev, dump_dir=None) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one more pipeline run (device time by kernel)")
     ap.add_argument("--dump", metavar="DIR", default=None,
                     help="write the selfcal correspondences and draws, the slice's depth, "
                          "4 frames, the seg check's chunks and card logits and the SfM "
@@ -2361,7 +2326,7 @@ def main(argv=None) -> int:
     if WORK.exists():
         shutil.rmtree(WORK)
     try:
-        s = phase_slice(dev, FRAMES, args.profile, bool(args.dump))
+        s = phase_slice(dev, FRAMES, bool(args.dump))
         me = phase_mesh(dev, s, bool(args.dump))
         s["dump"].update(me["dump"])
         for key in ("flows", "tracks", "depths"):       # the card memory [mesh] needed

@@ -1,6 +1,5 @@
-"""Flow-net inference: checkpoint loading, padding, and the single-pair,
-batched, pair-indexed and mesh-sharded applies (port of
-particlesfm_tpu/flow/infer.py).
+"""Flow-net inference: checkpoint loading, padding, and the pair-indexed
+apply over a device mesh (port of particlesfm_tpu/flow/infer.py).
 
 Checkpoints carry a sidecar JSON with the model configuration, so the compact
 (in-environment-trained) variant and the full width load through one path.
@@ -18,24 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..io.checkpoint import (load_msgpack, raft_state_dict_from_jax,
+from ..io.checkpoint import (load_msgpack, loaded, raft_state_dict_from_jax,
                              raft_variables_from_torch, save_msgpack)
 from ..models.depth import resize_bilinear
 from ..models.raft import RAFT, compact_raft
 from ..parallel.mesh import mesh_for
 from ..utils import profiling
-
-
-def pad_to_multiple(img, mult: int = 8):
-    """Edge-pad one image [H, W, C] (numpy or tensor) to multiples of
-    `mult`; returns (padded, (H, W))."""
-    H, W = img.shape[0], img.shape[1]
-    ph, pw = (-H) % mult, (-W) % mult
-    if ph == 0 and pw == 0:
-        return img, (H, W)
-    if torch.is_tensor(img):
-        return _pad8(img[None], ph, pw)[0], (H, W)
-    return np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge"), (H, W)
 
 
 def _pad8(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -100,63 +87,7 @@ def load_model(path, device) -> tuple:
     """RAFT with the checkpoint's weights (strict load), in eval mode on
     `device`, and the checkpoint's meta."""
     params, stats, meta = load_flow_checkpoint(path)
-    model = model_from_meta(meta)
-    model.load_state_dict(raft_state_dict_from_jax(params, stats), strict=True)
-    return model.to(device).eval(), meta
-
-
-def load_flow_apply(ckpt, iters: int = 12, device="cuda"):
-    """`apply(img1, img2) -> flow [H, W, 2]` (on `device`) for one pair of
-    images [H, W, 3] in [0, 255]. The GRU iteration count is the
-    checkpoint's recorded one when it has one, else `iters`."""
-    dev = resolve_device(device)
-    model, meta = load_model(ckpt, dev)
-    n_iters = int(meta.get("iters", iters))
-
-    @torch.inference_mode()
-    def apply(img1, img2):
-        img1 = torch.as_tensor(np.asarray(img1), dtype=torch.float32).to(dev)
-        img2 = torch.as_tensor(np.asarray(img2), dtype=torch.float32).to(dev)
-        p1, (H, W) = pad_to_multiple(img1)
-        p2, _ = pad_to_multiple(img2)
-        return model(p1[None], p2[None], iters=n_iters)[0, :H, :W]
-
-    return apply
-
-
-def load_flow_apply_batch(ckpt, iters=None, scale: float = 1.0, device="cuda"):
-    """`apply(img1s, img2s) -> flows [B, H, W, 2]` (on `device`) for a batch
-    of image pairs [B, H, W, 3] in [0, 255]. iters=None uses the checkpoint's
-    recorded count (default 12); scale < 1 runs the net at reduced
-    resolution (`_net_flow`)."""
-    dev = resolve_device(device)
-    model, meta = load_model(ckpt, dev)
-    n_iters = int(iters) if iters is not None else int(meta.get("iters", 12))
-
-    @torch.inference_mode()
-    def apply(img1s, img2s):
-        img1s = torch.as_tensor(np.asarray(img1s), dtype=torch.float32).to(dev)
-        img2s = torch.as_tensor(np.asarray(img2s), dtype=torch.float32).to(dev)
-        H, W = img1s.shape[1:3]
-        ph, pw = (-H) % 8, (-W) % 8
-        if ph or pw:
-            img1s, img2s = _pad8(img1s, ph, pw), _pad8(img2s, ph, pw)
-        return _net_flow(model, img1s, img2s, n_iters, scale)[:, :H, :W]
-
-    return apply
-
-
-def _replicas(ckpt, mesh):
-    """One RAFT per distinct device of `mesh`, each loaded from the same
-    converted state dict; and the checkpoint's meta."""
-    params, stats, meta = load_flow_checkpoint(ckpt)
-    sd = raft_state_dict_from_jax(params, stats)
-    models = {}
-    for d in mesh.distinct():
-        model = model_from_meta(meta)
-        model.load_state_dict(sd, strict=True)
-        models[d] = model.to(d).eval()
-    return models, meta
+    return loaded(model_from_meta(meta), raft_state_dict_from_jax(params, stats), device), meta
 
 
 def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
@@ -167,16 +98,14 @@ def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
 
     Returns `apply(stack, ia, ib) -> flows [N, H, W, 2]` (on the mesh's
     entry 0) where `stack` is the uint8 frame stack [T, H, W, 3] (tensor or
-    numpy; moved to each mesh device once) and ia/ib are frame indices per
-    pair. Pairs run in blocks of `per_device * mesh size`; each block is
-    split into contiguous groups of `per_device`, one per mesh entry, so
-    every net call sees the batch it sees on one device (the last, ragged
-    block is split the same way, unpadded). Every shard of every block is
-    issued before the flows are gathered. scale < 1 runs the net at reduced
-    resolution (`_net_flow`). With `refine_schedule` ((iters, sigma, radius)
-    phases) the photometric refinement runs right after the net on each
-    shard, at full resolution, and the returned apply carries
-    `.refines = True`. With tracing on (`utils.profiling`) each block's net
+    numpy; placed on each mesh device once a call) and ia/ib are frame
+    indices per pair. Pairs run in blocks of `per_device` by the mesh's rule
+    (`Mesh.map_blocks`: block g on entry g % size, the last block ragged),
+    so every net call sees the batch it sees on one device. scale < 1 runs
+    the net at reduced resolution (`_net_flow`). With `refine_schedule`
+    ((iters, sigma, radius) phases) the photometric refinement runs right
+    after the net on each block, at full resolution: this is the pipeline's
+    only refinement. With tracing on (`utils.profiling`) each block's net
     and refinement are spans `flow.net` and `flow.refine`, timed on the
     block's own device.
 
@@ -185,9 +114,10 @@ def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
     """
     if mesh is None:
         mesh = mesh_for(resolve_device(device))
-    models, meta = _replicas(ckpt, mesh)
+    params, stats, meta = load_flow_checkpoint(ckpt)
+    sd = raft_state_dict_from_jax(params, stats)
+    models = mesh.replicate(lambda d: loaded(model_from_meta(meta), sd, d))
     n_iters = int(iters) if iters is not None else int(meta.get("iters", 12))
-    devs = mesh.flat
 
     @torch.inference_mode()
     def run_block(model, stack, ia, ib):
@@ -210,45 +140,13 @@ def load_flow_apply_pairs(ckpt, iters=None, mesh=None, per_device: int = 8,
         return fl
 
     def apply(stack, ia, ib):
-        stack = torch.as_tensor(stack)
-        stacks = {d: stack.to(d) for d in models}
-        ia = np.asarray(ia, np.int64)
-        ib = np.asarray(ib, np.int64)
-        idx = {d: (torch.as_tensor(ia, device=d), torch.as_tensor(ib, device=d))
-               for d in models}
-        out = []
-        for g, lo in enumerate(range(0, len(ia), per_device)):
-            d = devs[g % len(devs)]
-            a, b = idx[d]
-            out.append(run_block(models[d], stacks[d], a[lo:lo + per_device],
-                                 b[lo:lo + per_device]))
-        return torch.cat([f.to(devs[0]) for f in out], 0)
-
-    apply.refines = refine_schedule is not None
-    return apply
-
-
-def load_flow_apply_sharded(ckpt, iters=None, mesh=None, per_device: int = 8,
-                            scale: float = 1.0, device="cuda"):
-    """Flow apply over an arbitrary list of image pairs, data-parallel over a
-    device mesh (reference flow/infer.py:288-330).
-
-    Returns `apply(img1s, img2s) -> flows [N, H, W, 2]` (numpy) for host
-    image pairs [N, H, W, 3] in [0, 255]: blocks of `per_device * mesh
-    size` pairs, each split into contiguous groups of `per_device`, one per
-    mesh entry, run through `load_flow_apply_batch`'s apply on that entry's
-    device. mesh=None as in `load_flow_apply_pairs`."""
-    if mesh is None:
-        mesh = mesh_for(resolve_device(device))
-    devs = mesh.flat
-    base = {d: load_flow_apply_batch(ckpt, iters=iters, scale=scale, device=d)
-            for d in mesh.distinct()}
-
-    def apply(img1s, img2s):
-        img1s = np.asarray(img1s, np.float32)
-        img2s = np.asarray(img2s, np.float32)
-        out = [base[devs[g % len(devs)]](img1s[lo:lo + per_device], img2s[lo:lo + per_device])
-               for g, lo in enumerate(range(0, img1s.shape[0], per_device))]
-        return np.concatenate([f.cpu().numpy() for f in out], 0)
+        ia, ib = np.asarray(ia, np.int64), np.asarray(ib, np.int64)
+        stacks = mesh.place(torch.as_tensor(stack))
+        # the indices go up once a call, not per block: a pageable copy
+        # inside the block loop would synchronise the stream each block
+        ias, ibs = mesh.place(torch.as_tensor(ia)), mesh.place(torch.as_tensor(ib))
+        return mesh.map_blocks(
+            lambda d, lo, hi: run_block(models[d], stacks[d], ias[d][lo:hi], ibs[d][lo:hi]),
+            len(ia), per_device)
 
     return apply

@@ -281,6 +281,13 @@ def raft_state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> d
     return sd
 
 
+def loaded(module: torch.nn.Module, state_dict: dict, device) -> torch.nn.Module:
+    """`module` with `state_dict` loaded strictly, in eval mode on `device`:
+    one inference replica of a net."""
+    module.load_state_dict(state_dict, strict=True)
+    return module.to(device).eval()
+
+
 def depth_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     """flax DepthNet `params` + `batch_stats` -> the port's DepthNet state
     dict: convs and batch norms, mapped as for RAFT (conv HWIO -> OIHW,

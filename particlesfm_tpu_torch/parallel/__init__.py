@@ -4,7 +4,6 @@ from .mesh import (
     mesh_for,
     data_sharding,
     replicated,
-    shard_frames,
     sharded_map_frames,
     init_distributed,
 )

@@ -12,6 +12,11 @@ Axes used across the package:
   data  — independent work items: frames, flow pairs, motion-seg windows;
   model — intra-problem sharding: the track axis of bundle adjustment.
 
+The data-parallel rule, for every net the pipeline runs over a mesh, is
+`Mesh.map_blocks`: rows in blocks of `per`, block g on entry g % size, the
+ragged tail unpadded, results gathered on entry 0. `Mesh.replicate` builds
+one net per distinct device and `Mesh.place` puts a shared input there.
+
 Across processes, `init_distributed` starts a `torch.distributed` process
 group; only bundle adjustment's reductions cross it (parallel/sharded_ba.py).
 """
@@ -45,6 +50,30 @@ class Mesh:
     def distinct(self) -> list:
         """The mesh's devices without repeats, in mesh order."""
         return list(dict.fromkeys(self.flat))
+
+    def replicate(self, build) -> dict:
+        """{device: build(device)} over the distinct devices: one replica of
+        a net (or any per-device state) for each."""
+        return {d: build(d) for d in self.distinct()}
+
+    def place(self, x: torch.Tensor) -> dict:
+        """{device: x on device} over the distinct devices, for an input
+        every block may read (a tensor already there is not copied)."""
+        return self.replicate(x.to)
+
+    def map_blocks(self, fn, n: int, per: int):
+        """The mesh's one data-parallel rule: rows [g*per, (g+1)*per) of n
+        go to entry g % size as `fn(device, lo, hi)`; the last block is
+        ragged, not padded. Every block is issued from this thread before
+        any result is gathered (CUDA launches are asynchronous, so blocks on
+        different cards overlap); the results (a tensor or a tuple of
+        tensors per block) are concatenated in row order on entry 0."""
+        outs = [fn(self.flat[g % self.size], lo, min(lo + per, n))
+                for g, lo in enumerate(range(0, n, per))]
+        first = self.flat[0]
+        if torch.is_tensor(outs[0]):
+            return torch.cat([o.to(first) for o in outs])
+        return tuple(torch.cat([o[j].to(first) for o in outs]) for j in range(len(outs[0])))
 
     def key(self) -> tuple:
         """The device tuple, as a hashable key (str of each entry)."""
@@ -110,41 +139,17 @@ def axis_devices(mesh: Mesh, axes: Sequence[str]) -> list:
     return [torch.device(d) for d in mesh.devices[idx].flat]
 
 
-def shard_frames(x, mesh: Mesh, axis: str = "data"):
-    """Split the leading (frame, pair, window) dimension of `x` over `axis`.
-
-    Pads the leading dimension to a multiple of the axis size by repeating
-    the last row, as the reference does for even sharding, and returns
-    (shards, n): one contiguous piece per device along the axis, each on
-    its device, and the original length."""
-    devs = axis_devices(mesh, (axis,))
-    x = torch.as_tensor(x)
-    n = x.shape[0]
-    pad = (-n) % len(devs)
-    if pad:
-        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-    per = x.shape[0] // len(devs)
-    return [x[i * per:(i + 1) * per].to(d) for i, d in enumerate(devs)], n
-
-
 def sharded_map_frames(fn, mesh: Mesh, *arrays, axis: str = "data"):
-    """Map `fn` over the leading axis, data-parallel over `axis`.
-
-    `fn` takes a batch (the shard's rows of each array, on its device) and
-    returns a tensor or a tuple of tensors. Every shard is issued from this
-    thread before any result is gathered; the results are concatenated on
-    the axis's first device and the padding is dropped."""
-    placed, n = [], None
-    for a in arrays:
-        s, n = shard_frames(a, mesh, axis)
-        placed.append(s)
-    devs = axis_devices(mesh, (axis,))
-    outs = [fn(*parts) for parts in zip(*placed)]
-    single = torch.is_tensor(outs[0])
-    cols = [[o] if single else list(o) for o in outs]
-    gathered = tuple(torch.cat([c[j].to(devs[0]) for c in cols])[:n]
-                     for j in range(len(cols[0])))
-    return gathered[0] if single else gathered
+    """Map `fn` over the leading (frame, pair, window) axis, data-parallel
+    over the devices along `axis`: `fn` takes a block (its rows of each
+    array, on its device) and returns a tensor or a tuple of tensors, one
+    row per input row. `Mesh.map_blocks` over those devices with
+    ceil(n / devices) rows a block."""
+    along = make_mesh(devices=axis_devices(mesh, (axis,)))
+    arrays = [torch.as_tensor(a) for a in arrays]
+    n = arrays[0].shape[0]
+    return along.map_blocks(lambda d, lo, hi: fn(*(a[lo:hi].to(d) for a in arrays)),
+                            n, -(-n // along.size))
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,

@@ -168,34 +168,26 @@ def _load_depth_apply(cfg: Config, device):
 
 
 def _build_depth_apply(ckpt, base: int, device):
-    """Frames run in blocks of 4 per mesh entry (4 * mesh size in all,
-    reference run.py:176-180): each block is split into groups of 4, one
-    per entry, each on that entry's DepthNet replica; the depths are
-    gathered on entry 0."""
-    from ..io.checkpoint import depth_state_dict_from_jax, load_msgpack
+    """Frames run in blocks of 4 (the reference's block, run.py:176-180) by
+    the mesh's rule (`Mesh.map_blocks`), each on its entry's DepthNet
+    replica; the depths are gathered on entry 0."""
+    from ..io.checkpoint import depth_state_dict_from_jax, load_msgpack, loaded
     from ..models.depth import DepthNet, normalize_depth
 
     mesh = _as_mesh(device)
     blob = load_msgpack(ckpt)
     sd = depth_state_dict_from_jax(blob["params"], blob.get("batch_stats", {}))
-    models = {}
-    for d in mesh.distinct():
-        model = DepthNet(base=base)
-        model.load_state_dict(sd, strict=True)
-        models[d] = model.to(d).eval()
-    devs = mesh.flat
-    per = 4
+    models = mesh.replicate(lambda d: loaded(DepthNet(base=base), sd, d))
 
     @torch.inference_mode()
     def apply(stack):
-        stack = torch.as_tensor(stack)
-        stacks = {d: stack.to(d) for d in models}
-        out = []
-        for g, lo in enumerate(range(0, stack.shape[0], per)):
-            d = devs[g % len(devs)]
-            x = stacks[d][lo:lo + per].to(torch.float32).permute(0, 3, 1, 2).contiguous()
-            out.append(normalize_depth(models[d](x)).to(torch.float16).to(torch.float32))
-        return torch.cat([o.to(devs[0]) for o in out])
+        stacks = mesh.place(torch.as_tensor(stack))
+
+        def block(d, lo, hi):
+            x = stacks[d][lo:hi].to(torch.float32).permute(0, 3, 1, 2).contiguous()
+            return normalize_depth(models[d](x)).to(torch.float16).to(torch.float32)
+
+        return mesh.map_blocks(block, len(stack), 4)
 
     return apply
 
@@ -203,10 +195,7 @@ def _build_depth_apply(ckpt, base: int, device):
 def _load_seg_apply(cfg: Config, device):
     """Motion-seg apply from a checkpoint (default: the repo's TrajOADepth)
     with a replica on each device of the mesh of `device` (`_as_mesh`):
-    `apply(traj, depth, valid) -> logits [B, K]`, computed on the device of
-    `depth` when it is a tensor on one of the mesh's devices (how
-    `segment_tracks` runs each window shard on its device), else on the
-    mesh's entry 0.
+    `apply(traj, depth, valid) -> logits [B, K]` on the mesh's entry 0.
 
     A sidecar <ckpt>.json may carry {"input_hw": [h, w]} (the model's depth
     resolution; depth maps are resized to it on the fly) and a calibrated
@@ -222,7 +211,10 @@ def _load_seg_apply(cfg: Config, device):
 
 
 def _build_seg_apply(ckpt, input_hw: tuple, mesh: Mesh):
-    from ..io.checkpoint import load_msgpack, motionseg_state_dict_from_jax
+    """The windows of a call are independent: they run by the mesh's rule
+    (`Mesh.map_blocks`) in ceil(B / mesh size) windows a block, so on one
+    device the net sees every window of the call at once."""
+    from ..io.checkpoint import load_msgpack, loaded, motionseg_state_dict_from_jax
     from ..models.depth import resize_bilinear
     from ..models.motionseg import TrajOADepth
 
@@ -234,22 +226,24 @@ def _build_seg_apply(ckpt, input_hw: tuple, mesh: Mesh):
         sidecar_threshold = meta.get("threshold")
     blob = load_msgpack(ckpt)
     sd = motionseg_state_dict_from_jax(blob["params"], blob.get("batch_stats", {}))
-    models = {}
-    for d in mesh.distinct():
-        model = TrajOADepth(input_hw=input_hw)
-        model.load_state_dict(sd, strict=True)
-        models[d] = model.to(d).eval()
+    models = mesh.replicate(lambda d: loaded(TrajOADepth(input_hw=input_hw), sd, d))
 
     @torch.inference_mode()
     def apply(traj, depth, valid):
-        depth = torch.as_tensor(depth)
-        dev = depth.device if depth.device in models else mesh.flat[0]
         traj = np.asarray(traj)
-        t = torch.from_numpy(traj.astype(np.float32)).to(dev)
-        if traj.dtype == np.uint16:
-            t = t * (1.0 / 65535.0)
-        depth = resize_bilinear(depth.to(dev, torch.float32), input_hw)
-        return models[dev](t, depth, torch.from_numpy(np.asarray(valid)).to(dev))
+        t_all = torch.from_numpy(traj.astype(np.float32))
+        depth = torch.as_tensor(depth)
+        valid = torch.from_numpy(np.asarray(valid))
+
+        def block(d, lo, hi):
+            t = t_all[lo:hi].to(d)
+            if traj.dtype == np.uint16:
+                t = t * (1.0 / 65535.0)
+            dep = resize_bilinear(depth[lo:hi].to(d, torch.float32), input_hw)
+            return models[d](t, dep, valid[lo:hi].to(d))
+
+        B = traj.shape[0]
+        return mesh.map_blocks(block, B, -(-B // mesh.size))
 
     apply.accepts_u16 = True
     apply.threshold = sidecar_threshold
@@ -311,7 +305,7 @@ def run_pipeline(image_dir, output_dir, cfg: Config, log=print, device="cuda"):
             if depths is not None:
                 with timer.stage("motion_seg"):
                     tracks = stages.motionseg_stage(tracks, depths, (H, W), out, cfg,
-                                                    seg_apply, mesh=mesh, log=log)
+                                                    seg_apply, log=log)
 
     # stage 4: global SfM
     result = tracks

@@ -1,9 +1,9 @@
 """Pipeline stages with the reference's on-disk contracts + skip-exists restart
 (port of particlesfm_tpu/pipeline/stages.py).
 
-The flow stage runs pair-indexed RAFT (optionally at reduced resolution)
-with photometric refinement fused into the apply or as a standalone pass,
-the stride-2 composition fallback, and flow self-calibration ->
+The flow stage runs pair-indexed RAFT (optionally at reduced resolution,
+with the photometric refinement inside the apply), the stride-2
+composition fallback, and flow self-calibration ->
 selfcal.json; then the trajectory stage (occlusion checks, slot-pool
 tracker with path-consistency LM), the depth and motion-segmentation
 stages, and the SfM stage (global mapper, reconstruction manager or
@@ -18,7 +18,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..flow.refine import photometric_refine_scheduled
 from ..globalsfm.selfcal import estimate_focal_from_flows
 from ..io import flo as flo_io
 from ..io.images import read_depth_png16, write_depth_png16
@@ -116,6 +115,10 @@ def flow_stage(
     """Pairwise forward/backward flow at stride 1 (and 2 unless disabled),
     then flow self-calibration -> selfcal.json.
 
+    Computed flows are the apply's, as it returns them (refined there when
+    the run refines); `device_stack` (`upload_frame_stack`) is needed only
+    when some flow is computed.
+
     Returns {name: [npairs, H, W, 2] tensor on `device`} for flow_f, flow_b
     (+ flow_f2, flow_b2); with --keep_intermediate also writes them as .flo directories (the
     reference's RAFT-stage contract). Existing complete .flo directories are
@@ -153,8 +156,6 @@ def flow_stage(
             "weights provided (pass --raft_ckpt or precompute flow)")
     if callable(device_stack):
         device_stack = device_stack()
-    if device_stack is None:        # the apply moves the stack to its device
-        device_stack = upload_frame_stack(images, "cpu")
     # ONE pair list over every direction, so the blocks are full
     ia_all, ib_all = [], []
     for name, stride, d, npairs in todo:
@@ -166,20 +167,10 @@ def flow_stage(
         result[name] = flows_all[off:off + npairs]
         off += npairs
     computed = {t[0] for t in todo}
-    if cfg.flow.photometric_refine:
-        reused = [n for n in result if n not in computed]
-        if reused:
-            log(f"[flow] NOTE: flow reused from disk ({', '.join(reused)}) bypasses "
-                "photometric refinement (external flow respected as-is)")
-        if getattr(raft_apply, "refines", False):
-            log(f"[flow] photometric refinement fused into inference "
-                f"(schedule {cfg.flow.refine_schedule})")
-        else:
-            stack = device_stack.to(flows_all.device)
-            for (name, stride, d, npairs), ia, ib in zip(todo, ia_all, ib_all):
-                result[name] = _refine_standalone(stack, ia, ib, result[name], cfg)
-                log(f"[flow] {name}: photometric refinement "
-                    f"(schedule {cfg.flow.refine_schedule})")
+    reused = [n for n in result if n not in computed]
+    if cfg.flow.photometric_refine and reused:
+        log(f"[flow] NOTE: flow reused from disk ({', '.join(reused)}) bypasses "
+            "photometric refinement (external flow respected as-is)")
     if cfg.flow.stride2_compose_disagree_px > 0 and use_pc:
         _stride2_fallback(result, computed, cfg.flow.stride2_compose_disagree_px, log)
 
@@ -196,29 +187,6 @@ def flow_stage(
             flo_io.write_flo(d / f"{i:06d}.flo", host[i])
         log(f"[flow] {name}: computed {npairs} pairs (batched)")
     return result
-
-
-def _refine_standalone(stack, ia, ib, flows, cfg, block: int = 8):
-    """Photometric refinement of freshly computed flows outside the flow
-    apply: pairs in blocks of `block`, the tail block padded with repeats
-    of its last pair (stages.py:212-242 of the reference)."""
-    def frames(idx):
-        return stack[torch.as_tensor(idx, device=stack.device)].to(torch.float32) / 255.0
-
-    out = []
-    with profiling.span("flow.refine", device=stack.device):
-        for s in range(0, len(ia), block):
-            a, b, f0 = ia[s:s + block], ib[s:s + block], flows[s:s + block]
-            pad = block - len(a)
-            if pad:
-                a = np.concatenate([a, np.repeat(a[-1:], pad)])
-                b = np.concatenate([b, np.repeat(b[-1:], pad)])
-                f0 = torch.cat([f0, f0[-1:].expand(pad, *f0.shape[1:])])
-            ref = photometric_refine_scheduled(
-                frames(a), frames(b), f0, schedule=cfg.flow.refine_schedule,
-                max_total=cfg.flow.refine_max_total_px)
-            out.append(ref[:block - pad])
-    return torch.cat(out)
 
 
 def _stride2_fallback(result: dict, computed, tau: float, log):
@@ -307,10 +275,7 @@ def depth_stage(
     if depth_apply is None:
         raise MissingDepthError(
             f"depth stage: no precomputed depth at {d} and no depth weights provided")
-    if callable(device_stack):
-        device_stack = device_stack()
-    deps = depth_apply(upload_frame_stack(images, "cpu") if device_stack is None
-                       else device_stack)
+    deps = depth_apply(device_stack() if callable(device_stack) else device_stack)
     # the PNGs are written only when they outlive the run; the seg stage
     # reads the in-memory stack either way
     if cfg.keep_intermediate:
@@ -329,11 +294,9 @@ def motionseg_stage(
     out_dir: Path,
     cfg: Config,
     seg_apply: Optional[Callable] = None,
-    mesh=None,
     log=print,
 ) -> TrackArrays:
-    """Label tracks dynamic/static; writes trajectories_labeled/tracks.npz.
-    With `mesh` the windows run data-parallel over its devices."""
+    """Label tracks dynamic/static; writes trajectories_labeled/tracks.npz."""
     labeled_path = Path(out_dir) / "trajectories_labeled" / "tracks.npz"
     if cfg.skip_exists and labeled_path.exists():
         log("[motionseg] reusing existing labeled tracks")
@@ -353,7 +316,6 @@ def motionseg_stage(
         window_size=cfg.motionseg.window_size,
         traj_max_num=cfg.motionseg.traj_max_num,
         threshold=thr,
-        mesh=mesh,
         log=log,
     )
     labeled_path.parent.mkdir(parents=True, exist_ok=True)

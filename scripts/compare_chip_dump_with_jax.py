@@ -367,7 +367,8 @@ def compare_stride2(z) -> None:
                           JR._load_raft_apply(cfg), log=lambda *a: None)
             cfg = config(PConfig)
             PS.flow_stage(images.astype(np.float32), Path(tmp) / "p", cfg, "cpu",
-                          PR._load_raft_apply(cfg, "cpu"), log=lambda *a: None)
+                          PR._load_raft_apply(cfg, "cpu"), log=lambda *a: None,
+                          device_stack=PS.upload_frame_stack(images, "cpu"))
     finally:
         jops.stride2_compose_fallback, PS.stride2_compose_fallback = orig_j, orig_p
     T, H, W = images.shape[:3]

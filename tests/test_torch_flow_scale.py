@@ -1,12 +1,14 @@
-"""Port parity: the flow applies (mirrors particlesfm_tpu/flow/infer.py),
-reduced-resolution flow (`flow.infer_scale`) in particular.
+"""Port parity: the flow apply (mirrors particlesfm_tpu/flow/infer.py),
+reduced-resolution flow (`flow.infer_scale`) in particular, and what the
+flow stage makes of the apply's flows.
 
 The compact checkpoint on 4 rendered 132x196 frames: edge-padded to 136x200,
 then resized to (round(136*0.5/8)*8, round(200*0.5/8)*8) = (64, 96) by
 Python's round (half to even: 8.5 -> 8, 12.5 -> 12), so the half-scale
 pyramid keeps its 4 levels (8x12 at level 0). Tolerances against JAX: mean
 |flow diff| <= 1e-4 px and max <= 2e-3 px, with and without the fused
-photometric refinement; the single-pair apply at full resolution alike.
+photometric refinement; the pair apply on one pair at full resolution
+against JAX's single-pair apply alike.
 """
 import numpy as np
 import pytest
@@ -43,7 +45,6 @@ def test_half_scale_pairs_apply_matches_jax(stack, refine):
         CKPT, iters=8, per_device=1, scale=0.5, refine_schedule=refine)(stack, IA, IB))
     apply = infer.load_flow_apply_pairs(CKPT, iters=8, scale=0.5, refine_schedule=refine,
                                         device="cpu")
-    assert apply.refines is (refine is not None)
     _agree(apply(stack, IA, IB).numpy(), want)
 
 
@@ -65,50 +66,43 @@ def test_net_input_size_rounds_half_to_even(monkeypatch):
         np.testing.assert_allclose(fl[0, 5, 5].numpy(), np.float32(gain), rtol=1e-6)
 
 
-def test_half_scale_batch_apply_equals_pairs_apply(stack):
-    """The batched apply (frames in, not indices) gives the pair apply's flows."""
-    pairs = infer.load_flow_apply_pairs(CKPT, iters=8, scale=0.5, device="cpu")(stack, IA, IB)
-    batch = infer.load_flow_apply_batch(CKPT, iters=8, scale=0.5, device="cpu")(
-        stack[IA].astype(np.float32), stack[IB].astype(np.float32))
-    np.testing.assert_allclose(batch.numpy(), pairs.numpy(), rtol=0, atol=1e-5)
-
-
 def test_single_pair_apply_matches_jax(stack):
     want = np.asarray(jinfer.load_flow_apply(CKPT)(stack[0].astype(np.float32),
                                                    stack[1].astype(np.float32)))
-    got = infer.load_flow_apply(CKPT, device="cpu")(stack[0], stack[1]).numpy()
+    got = infer.load_flow_apply_pairs(CKPT, device="cpu")(stack, [0], [1])[0].numpy()
     _agree(got, want)
 
 
-@pytest.mark.parametrize("shape", [(132, 196, 3), (136, 200, 3)])
-def test_pad_to_multiple_matches_jax(shape):
-    img = np.random.default_rng(0).normal(size=shape).astype(np.float32)
-    want, hw = jinfer.pad_to_multiple(img)
-    got, hw_t = infer.pad_to_multiple(img)
-    got_t, _ = infer.pad_to_multiple(torch.from_numpy(img))
-    assert hw == hw_t == shape[:2]
-    np.testing.assert_array_equal(got, np.asarray(want))
-    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want))
-
-
-def test_standalone_refinement_equals_fused(stack, tmp_path):
-    """flow_stage with an apply that does not refine runs the standalone
-    photometric-refinement pass (blocks of 8, the tail padded with repeats):
-    the same flows as the apply with refinement fused, within 1e-5 px."""
+@pytest.mark.parametrize("refine", [True, False])
+def test_flow_stage_takes_the_apply_flows(stack, tmp_path, refine):
+    """flow_stage hands on exactly the flows its apply returns for each
+    direction, with the refinement on or off: it runs no refinement of its
+    own (the apply is its only home), on one pair list over every
+    direction."""
     from particlesfm_tpu_torch.pipeline import stages
     from particlesfm_tpu_torch.utils.config import Config
 
     cfg = Config()
     cfg.flow.selfcal = False
+    cfg.flow.photometric_refine = refine
     cfg.flow.refine_schedule = [list(p) for p in SCHEDULE]
-    kw = dict(iters=2, scale=0.5, device="cpu")
-    plain = infer.load_flow_apply_pairs(CKPT, **kw)
-    fused = infer.load_flow_apply_pairs(CKPT, refine_schedule=SCHEDULE, **kw)
-    logs = []
-    got = stages.flow_stage(stack.astype(np.float32), tmp_path / "a", cfg, "cpu", plain,
-                            log=logs.append)
-    want = stages.flow_stage(stack.astype(np.float32), tmp_path / "b", cfg, "cpu", fused,
-                             log=lambda *a: None)
-    assert sum("photometric refinement (schedule" in m for m in logs) == 4
-    for name in ("flow_f", "flow_b", "flow_f2", "flow_b2"):
-        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=1e-5)
+    apply = infer.load_flow_apply_pairs(
+        CKPT, iters=2, scale=0.5, device="cpu",
+        refine_schedule=SCHEDULE if refine else None)
+    calls = []
+
+    def recorded(st, ia, ib):
+        calls.append((ia, ib))
+        return apply(st, ia, ib)
+
+    images = stack.astype(np.float32)
+    got = stages.flow_stage(images, tmp_path, cfg, "cpu", recorded, log=lambda *a: None,
+                            device_stack=stages.upload_frame_stack(images, "cpu"))
+    ((ia, ib),) = calls
+    want = apply(stack, ia, ib)
+    off = 0
+    for name, stride in (("flow_f", 1), ("flow_b", -1), ("flow_f2", 2), ("flow_b2", -2)):
+        n = 4 - abs(stride)
+        np.testing.assert_array_equal(ib[off:off + n] - ia[off:off + n], np.full(n, stride))
+        assert torch.equal(got[name], want[off:off + n])
+        off += n

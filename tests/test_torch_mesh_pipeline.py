@@ -1,9 +1,10 @@
 """The pipeline's data-parallel applies on a mesh of CPU devices equal their
 one-device results: the flow pair apply (5 pairs on a 2-entry mesh, so the
-last block is ragged) and the sharded host-pair apply, the depth apply,
-`segment_tracks`' window split; and `run_pipeline` builds its mesh from the
-device it is given. Flows, depths and logits are compared bit for bit:
-every shard runs the batch the one-device apply runs."""
+last block is ragged), the depth apply, the seg apply's window split under
+`segment_tracks`; and `run_pipeline` builds its mesh from the device it is
+given. Flows, depths and logits are compared bit for bit: each net call
+runs the rows its one-device call runs (seg: a subset of the same windows,
+which the net treats independently)."""
 import numpy as np
 import pytest
 import torch
@@ -60,21 +61,9 @@ def test_flow_pairs_on_a_mesh_equal_one_device(frames, monkeypatch, refine):
     want = one(frames, ia, ib)
     meshed = infer.load_flow_apply_pairs(run.DEFAULT_RAFT_CKPT, mesh=MESH2, **kw)
     got = meshed(frames, ia, ib)
-    assert got.shape == (5, H, W, 2) and meshed.refines == refine
+    assert got.shape == (5, H, W, 2)
     assert torch.equal(got, want)
     assert sizes == [2, 2, 1] * 2
-
-
-def test_flow_apply_sharded_equals_pair_apply(frames):
-    """The host-pair apply on a 2-entry mesh (3 pairs, per_device 2: groups
-    [0, 1] and [2]) gives the pair-indexed apply's flows."""
-    ia, ib = np.array([0, 2, 4]), np.array([1, 3, 5])
-    got = infer.load_flow_apply_sharded(run.DEFAULT_RAFT_CKPT, iters=2, mesh=MESH2,
-                                        per_device=2)(frames[ia], frames[ib])
-    want = infer.load_flow_apply_pairs(run.DEFAULT_RAFT_CKPT, iters=2, per_device=2,
-                                       device="cpu")(frames, ia, ib)
-    assert isinstance(got, np.ndarray) and got.shape == (3, H, W, 2)
-    np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_depth_apply_on_a_mesh_equals_one_device(frames):
@@ -99,16 +88,27 @@ def _tracks(seed, N, T, H, W):
     return np.clip(xy, 0, [W - 1, H - 1]).astype(np.float32) * mask[..., None], mask
 
 
-def test_segment_tracks_on_a_mesh_equals_one_device():
-    """28 frames make 3 windows (the last realigned to the end), padded to 4
-    on the 2-entry mesh; 3,500 tracks with max_cells 2048 make two chunks.
-    The threshold sits at the median logit so the labels are mixed."""
+def test_segment_tracks_on_a_mesh_equals_one_device(monkeypatch):
+    """28 frames make 3 windows (the last realigned to the end); 3,500 tracks
+    with max_cells 2048 make two chunks. segment_tracks calls the apply once
+    a chunk with all 3 windows; on the 2-entry mesh the apply splits them
+    into blocks of 2 and 1. The threshold sits at the median logit so the
+    labels are mixed."""
+    from particlesfm_tpu_torch.models.motionseg import TrajOADepth
+
     n_frames, h, w = 28, 48, 64
     xy, mask = _tracks(4, 3500, n_frames, h, w)
     depth = torch.from_numpy(np.random.default_rng(1).random((n_frames, h, w), np.float32))
     cfg = Config()
     seg_one, seg_mesh = run._load_seg_apply(cfg, CPU), run._load_seg_apply(cfg, MESH2)
-    logits = {}
+    logits, net_batches = {}, []
+    forward = TrajOADepth.forward
+
+    def counted(self, traj, *a, **k):
+        net_batches.append(traj.shape[0])
+        return forward(self, traj, *a, **k)
+
+    monkeypatch.setattr(TrajOADepth, "forward", counted)
 
     def recording(apply, tag):
         def rec(traj, d, valid):
@@ -120,18 +120,16 @@ def test_segment_tracks_on_a_mesh_equals_one_device():
 
     kw = dict(window_size=10, traj_max_num=1400, max_cells=2048)
     segment_tracks(recording(seg_one, "one"), TrackArrays(xy, mask), depth, (h, w), **kw)
-    segment_tracks(recording(seg_mesh, "mesh"), TrackArrays(xy, mask), depth, (h, w),
-                   mesh=MESH2, **kw)
-    assert [lg.shape[0] for lg in logits["one"]] == [3, 3]
-    assert [lg.shape[0] for lg in logits["mesh"]] == [2, 2, 2, 2]
+    assert net_batches == [3, 3]
+    segment_tracks(recording(seg_mesh, "mesh"), TrackArrays(xy, mask), depth, (h, w), **kw)
+    assert net_batches[2:] == [2, 1, 2, 1]
+    assert [lg.shape[0] for lg in logits["mesh"]] == [3, 3]
     one = torch.cat(logits["one"], 1)
-    meshed = torch.cat([torch.cat(logits["mesh"][i:i + 2])[:3] for i in (0, 2)], 1)
-    assert torch.equal(meshed, one)
+    assert torch.equal(torch.cat(logits["mesh"], 1), one)
     cut = float(one[one != 0].median())
     kw["threshold"] = float(1 / (1 + np.exp(-cut)))
     lab = segment_tracks(seg_one, TrackArrays(xy, mask), depth, (h, w), **kw).labels
-    lab_mesh = segment_tracks(seg_mesh, TrackArrays(xy, mask), depth, (h, w), mesh=MESH2,
-                              **kw).labels
+    lab_mesh = segment_tracks(seg_mesh, TrackArrays(xy, mask), depth, (h, w), **kw).labels
     assert 0.1 < lab[mask].mean() < 0.9
     np.testing.assert_array_equal(lab_mesh, lab)
 

@@ -30,7 +30,7 @@ from particlesfm_tpu_torch.globalsfm.ba import bundle_adjust, default_free_masks
 from particlesfm_tpu_torch.globalsfm.tracks3d import TrackObs, triangulate_tracks
 from particlesfm_tpu_torch.ops.flow_ops import occlusion_mask
 from particlesfm_tpu_torch.parallel import (data_sharding, init_distributed, make_mesh,
-                                            replicated, shard_frames, sharded_bundle_adjust,
+                                            replicated, sharded_bundle_adjust,
                                             sharded_map_frames)
 from particlesfm_tpu_torch.parallel import sharded_ba
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -46,35 +46,69 @@ def mesh():
     return make_mesh(devices=CPU8)
 
 
+def _blocks(mesh, n, per):
+    """mesh.map_blocks over rows 0..n-1 (a column of row numbers): the
+    (device, lo, hi) of each call, in call order, and the gathered rows."""
+    calls = []
+
+    def fn(d, lo, hi):
+        calls.append((d, lo, hi))
+        return torch.arange(lo, hi, dtype=torch.float32)[:, None]
+
+    return calls, mesh.map_blocks(fn, n, per)
+
+
 def test_mesh_and_sharding(mesh):
     assert mesh.shape == {"data": 8} and mesh.axis_names == ("data",)
     assert data_sharding(mesh, 2).spec == ("data", None) and replicated(mesh).spec == ()
-    x = np.arange(32, dtype=np.float32).reshape(16, 2)
-    shards, n = shard_frames(x, mesh)
-    assert n == 16 and len(shards) == 8
-    assert all(s.shape == (2, 2) and s.device == torch.device("cpu") for s in shards)
-    np.testing.assert_array_equal(torch.cat(shards).numpy(), x)
+    calls, rows = _blocks(mesh, 16, 2)
+    assert [(lo, hi) for _, lo, hi in calls] == [(2 * g, 2 * g + 2) for g in range(8)]
+    assert all(d == torch.device("cpu") for d, _, _ in calls) and rows.device.type == "cpu"
+    np.testing.assert_array_equal(rows[:, 0].numpy(), np.arange(16))
 
 
-def test_shard_frames_pads_uneven(mesh):
-    x = np.arange(10, dtype=np.float32).reshape(5, 2)
-    shards, n = shard_frames(x, mesh)
-    assert n == 5 and sum(s.shape[0] for s in shards) == 8
-    # padded by repeating the last row, as the reference pads
-    np.testing.assert_array_equal(torch.cat(shards).numpy(), x[[0, 1, 2, 3, 4, 4, 4, 4]])
+@pytest.mark.parametrize("entries,n,per", [
+    (("cpu", "meta"), 5, 2),                  # ragged tail on entry 0, unpadded
+    (("cpu", "meta", "cpu"), 7, 3),           # a repeated entry; tail of one row
+    (("cpu", "meta", "cpu", "meta"), 9, 2),   # more blocks than entries: round robin
+    (("cpu",), 10, 4),                        # one entry takes every block
+    (("cpu", "meta"), 3, 8),                  # one short block
+])
+def test_map_blocks_rule(entries, n, per):
+    """Block g holds rows [g*per, min((g+1)*per, n)) on entry g % size, the
+    tail is not padded, and the gather is in row order on entry 0. "meta"
+    entries are only labels here: the blocks compute on the CPU."""
+    m = make_mesh(devices=list(entries))
+    calls, rows = _blocks(m, n, per)
+    starts = list(range(0, n, per))
+    assert [(lo, hi) for _, lo, hi in calls] == [(lo, min(lo + per, n)) for lo in starts]
+    assert [d for d, _, _ in calls] == [m.flat[g % m.size] for g in range(len(starts))]
+    assert rows.device == m.flat[0]
+    np.testing.assert_array_equal(rows[:, 0].numpy(), np.arange(n))
+
+
+def test_replicate_and_place_cover_the_distinct_devices():
+    m = make_mesh(devices=["cpu", "meta", "cpu"])
+    assert m.replicate(str) == {torch.device("cpu"): "cpu", torch.device("meta"): "meta"}
+    x = torch.arange(4)
+    placed = m.place(x)
+    assert list(placed) == [torch.device("cpu"), torch.device("meta")]
+    assert placed[torch.device("cpu")] is x and placed[torch.device("meta")].is_meta
 
 
 def test_two_axis_mesh_shape():
     m = make_mesh((2, 4), ("data", "model"), devices=CPU8)
     assert m.shape == {"data": 2, "model": 4} and m.devices.shape == (2, 4)
-    assert len(shard_frames(np.zeros((6, 1)), m)[0]) == 2
+    calls = []
+    sharded_map_frames(lambda x: calls.append(len(x)) or x, m, np.zeros((6, 1)))
+    assert calls == [3, 3]           # split over the 2 devices of "data" only
     with pytest.raises(ValueError, match="needs 8 devices"):
         make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 4)
 
 
 def test_sharded_flow_check_matches_jax(mesh):
     """The reference's test_parallel.py:34-45 flows through both packages'
-    sharded_map_frames (11 frames on 8 shards: padding runs)."""
+    sharded_map_frames (11 frames on 8 shards: blocks of 2, the last of 1)."""
     assert len(jax.devices()) == 8
     rng = np.random.default_rng(0)
     T, H, W = 11, 16, 24

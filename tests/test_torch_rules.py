@@ -64,7 +64,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--image_dir", str(tmp_path), "--output_dir", str(tmp_path / "o"),
                   "--assume_static", "--skip_sfm", "--set", "flow.selfcal=false"])
-    assert load_flow_apply_pairs(DEFAULT_RAFT_CKPT, device="cpu").refines is False
+    assert callable(load_flow_apply_pairs(DEFAULT_RAFT_CKPT, device="cpu"))
 
 
 def test_mesh_needs_cuda_unless_devices_are_given(monkeypatch):
